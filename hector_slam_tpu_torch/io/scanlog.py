@@ -1,0 +1,90 @@
+"""Scan construction and scan-log IO.
+
+Counterpart of ``hector_slam_tpu/io/scanlog.py``: the same numpy
+conversion (HectorMappingRos::rosLaserScanToDataContainer,
+src/HectorMappingRos.cpp:483-507) and the same .npz scan-log format,
+returning tensors on the chosen device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..types import Scan, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class LaserModel:
+    """Hokuyo UTM-30LX geometry (the reference's headline sensor,
+    hector_mapping/package.xml:7): 1081 beams over 270 deg at 40 Hz."""
+
+    num_beams: int = 1081
+    angle_min: float = -2.356194490192345   # -135 deg
+    angle_increment: float = 0.004363323129985824  # 0.25 deg
+    range_min: float = 0.1
+    range_max: float = 30.0
+
+    @property
+    def angles(self) -> np.ndarray:
+        return (self.angle_min
+                + np.arange(self.num_beams) * self.angle_increment
+                ).astype(np.float32)
+
+
+def scan_from_ranges(
+    ranges: np.ndarray,
+    scale_to_map: float,
+    laser: LaserModel = LaserModel(),
+    max_beams: int = 1152,
+    origo: Tuple[float, float] = (0.0, 0.0),
+    device="cuda",
+) -> Scan:
+    """Polar ranges -> padded Scan (keep beams with range in
+    (range_min, range_max - 0.1), endpoints cos/sin * range * scaleToMap)
+    on ``device`` (the card unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
+    ranges = np.asarray(ranges, np.float32)
+    angles = laser.angles[: len(ranges)]
+    max_range = np.float32(laser.range_max - 0.1)
+    keep = (ranges > np.float32(laser.range_min)) & (ranges < max_range)
+    dist = ranges[keep] * np.float32(scale_to_map)
+    pts = np.stack([np.cos(angles[keep]) * dist,
+                    np.sin(angles[keep]) * dist], axis=-1).astype(np.float32)
+    return _pad(pts, origo, max_beams, dev)
+
+
+def _pad(points: np.ndarray, origo, max_beams: int, device) -> Scan:
+    n = len(points)
+    if n > max_beams:
+        raise ValueError(f"scan has {n} beams > max_beams={max_beams}")
+    padded = np.zeros((max_beams, 2), np.float32)
+    padded[:n] = points
+    mask = np.zeros(max_beams, bool)
+    mask[:n] = True
+    return Scan(points=torch.from_numpy(padded).to(device),
+                origo=torch.from_numpy(
+                    np.asarray(origo, np.float32).copy()).to(device),
+                mask=torch.from_numpy(mask).to(device))
+
+
+def stack_scans(scans: Sequence[Scan]) -> Scan:
+    """Stack per-scan tuples into one Scan with a leading time axis, for
+    ``run_log``."""
+    return Scan(points=torch.stack([s.points for s in scans]),
+                origo=torch.stack([s.origo for s in scans]),
+                mask=torch.stack([s.mask for s in scans]))
+
+
+def load_log(path: str):
+    """Returns (ranges f32[T,B], LaserModel, poses_true or None)."""
+    with np.load(path) as z:
+        laser = LaserModel(
+            num_beams=int(z["num_beams"]), angle_min=float(z["angle_min"]),
+            angle_increment=float(z["angle_increment"]),
+            range_min=float(z["range_min"]), range_max=float(z["range_max"]))
+        poses = z["poses_true"] if "poses_true" in z else None
+        return z["ranges"], laser, poses
