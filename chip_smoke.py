@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from the checkout, holds each kernel
 against its plain PyTorch version at the main path's shapes, and drives
 the main path through the entry points a user calls:
   1. device  — the card's name, count, power limit;
-  2. build   — nvcc builds every kernel (registers and spills printed);
+  2. build   — nvcc builds every kernel, all at once (registers and spills
+     printed);
   3. kernel vs plain — interp_moments at the bench shapes (random
      1024^2, 512^2, 256^2 grids, B=4096 hypotheses, N=1152 beams with
      the tail masked, some beams beyond the map edge): moments within
@@ -16,14 +17,31 @@ the main path through the entry points a user calls:
   4. sequential SLAM — the 435-scan corridor fixture on BENCH_CONFIG,
      held against the committed JAX reference trajectory
      (tests/fixtures/corridor_jax_reference.npz): every gate equal, equal
-     update counts, pose RMSE < 5 mm;
+     update counts, pose RMSE < 5 mm; six paints per gated update;
   5. batched matching — the bench.py workload: a map built with known
      poses, 4096 hypotheses (sigma 0.05) matched through
      match_hypotheses_kernel (14 kernel launches per call), a
      256-hypothesis subset held against the plain batched matcher;
-  6. the kernels line: per kernel, its launches on the main path, its
-     largest error against the plain version, its time, the plain
-     version's time and the bound computed from this run's inputs.
+  6. fleet — fleet_step with 64 robots, a BENCH_CONFIG pyramid each, every
+     robot on its own simulated corridor trajectory: robots 0, 21, 42 and
+     63 replayed alone through slam_step must agree bit for bit (gates,
+     poses, every level's map); steps/s and paints per step;
+  7. shared fleet — shared_fleet_step with 64 robots in one BENCH_CONFIG
+     pyramid, replaying the committed JAX reference
+     (tests/fixtures/shared_fleet_jax_reference.npz, written by
+     tools/make_torch_fleet_reference.py): gates equal for every robot
+     and step, equal update counts, pose RMSE < 5 mm, each level's counts
+     of cells > 0 and < 0 equal;
+  8. paint vs plain — paint_cells at the probe's own workload (1024^2,
+     65,536 random cells) and at every index set the three map-update
+     paths above give it: grids exactly equal to the plain version's, two
+     launches bit-identical, and its time beside the plain version's, one
+     index_put_ and the bytes bound;
+  9. the kernels line: per kernel, its launches on the main path (each
+     path is driven with the counts set to 0 just before it and read
+     just after), its largest error against the plain version, its time,
+     the plain version's and the library call's time, and the bound
+     computed from this run's inputs.
 Each phase prints one JSON line; any failure exits non-zero. The last
 line is {"ok": true, "device": {...}}. Without a card, or without the
 rest of the repository beside it, it prints no result and exits 2.
@@ -42,7 +60,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 REL_TOL = 1e-5          # kernel vs plain, relative to max |moment| per hyp
-RMSE_BUDGET_M = 0.005   # port vs JAX pose RMSE on the fixture
+RMSE_BUDGET_M = 0.005   # port vs JAX pose RMSE on the fixtures
+FLEET_ROBOTS = 64       # BASELINE config 5: 64 parallel trajectories
+FLEET_STEPS = 8
+FLEET_CHECKED = (0, 21, 42, 63)   # replayed alone through slam_step
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 non-tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -55,6 +76,17 @@ OPS_PER_OTHER_QUERY = 8   # a valid beam outside the map: the transform
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def reset_counts(kernels) -> None:
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+
+
+def read_counts(kernels) -> dict:
+    torch.cuda.synchronize()
+    return {name: k.launches for name, k in kernels.items()}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -165,7 +197,7 @@ def phase_kernel_vs_plain(dev):
     return worst_abs
 
 
-def phase_sequential(interp_moments):
+def phase_sequential(kernels):
     import hector_slam_tpu_torch as ht
     ref = np.load(ROOT / "tests" / "fixtures" / "corridor_jax_reference.npz")
     ranges, laser, _ = ht.load_log(
@@ -174,15 +206,13 @@ def phase_sequential(interp_moments):
     scans = ht.stack_scans([ht.scan_from_ranges(
         r, cfg.map.level_scale(0), laser, cfg.max_beams) for r in ranges])
     state = ht.init_state(cfg)
-    torch.cuda.synchronize()
-    interp_moments.launches = 0
+    reset_counts(kernels)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     state, poses, metrics = ht.run_log(state, scans, cfg)
     end.record()
-    torch.cuda.synchronize()
-    launches = interp_moments.launches
+    launches = read_counts(kernels)
     ms = start.elapsed_time(end)
     poses = poses.cpu().numpy()
     gates = metrics.map_updated.cpu().numpy()
@@ -192,28 +222,36 @@ def phase_sequential(interp_moments):
     gate_agree = int((gates == ref["map_updated"]).sum())
     count = int(state.map_update_count)
     trunc = int(metrics.truncated_free_cells.sum())
+    paints = 2 * cfg.map.levels * count
     ok = (gate_agree == len(gates) and count == int(ref["map_update_count"])
           and rmse < RMSE_BUDGET_M and trunc == 0
-          and np.isfinite(poses).all() and poses.shape == ref["poses"].shape)
+          and np.isfinite(poses).all() and poses.shape == ref["poses"].shape
+          and launches["paint_cells"] == paints)
     emit("sequential_slam", ok=ok, scans=len(gates), ms=ms,
          scans_per_s=len(gates) / (ms / 1e3), gate_agreement=gate_agree,
          map_update_count=count, jax_map_update_count=int(
              ref["map_update_count"]), pose_rmse_m=rmse,
          yaw_rmse_rad=yaw_rmse, max_pose_diff=float(
              np.abs(poses - ref["poses"]).max()), truncated_free_cells=trunc,
-         kernel_launches=launches)
+         kernel_launches=launches, expected_paint_launches=paints)
     if not ok:
         raise SystemExit("sequential SLAM disagrees with the JAX reference")
+    # one gated update's paint inputs: a mid-log scan at its matched pose
+    gated = np.flatnonzero(gates)
+    t = int(gated[len(gated) // 2])
+    return launches, (torch.from_numpy(poses[t]).to(scans.points.device),
+                      ht.Scan(scans.points[t], scans.origo[t],
+                              scans.mask[t]))
 
 
-def phase_batched(dev, interp_moments):
+def phase_batched(dev, kernels):
     import hector_slam_tpu_torch as ht
     from hector_slam_tpu_torch.core.grid import world_to_map_pose
     from hector_slam_tpu_torch.core.matcher import level_points
     from hector_slam_tpu_torch.io.simulator import (World, corridor_trajectory,
                                                     simulate_trajectory)
     from hector_slam_tpu_torch.ops.interp_moments import (
-        _launch, interp_moments_plain, prepare)
+        _launch, interp_moments, interp_moments_plain, prepare)
     cfg = ht.BENCH_CONFIG
     laser = ht.LaserModel()
     poses_true = corridor_trajectory(10, advance=0.12, weave=0.03)
@@ -236,11 +274,9 @@ def phase_batched(dev, interp_moments):
         return ht.match_hypotheses_kernel(state.log_odds, hyp, scan, cfg,
                                           quads=state.quads)
 
-    torch.cuda.synchronize()
-    interp_moments.launches = 0
+    reset_counts(kernels)
     result, diag = match()
-    torch.cuda.synchronize()
-    launches = interp_moments.launches
+    launches = read_counts(kernels)
     steps = sum((cfg.match.iterations_finest if lvl == 0
                  else cfg.match.iterations_coarse) + 1
                 for lvl in range(cfg.map.levels))
@@ -288,7 +324,7 @@ def phase_batched(dev, interp_moments):
         level_in = ht.match_hypotheses_kernel(
             state.log_odds, level_in, scan, cfg, quads=state.quads,
             max_level=lvl, min_level=lvl)[0].pose
-    ok = (launches == steps and pose.shape == (b, 3)
+    ok = (launches["interp_moments"] == steps and pose.shape == (b, 3)
           and np.isfinite(pose).all() and np.isfinite(plain).all()
           and p90 < 2e-3 and p99 < 5e-2
           and all(lv["used_equal"] and lv["max_rel_err"] <= REL_TOL
@@ -305,6 +341,310 @@ def phase_batched(dev, interp_moments):
     return launches, levels, worst_abs
 
 
+def fleet_ranges():
+    """Ranges f32[T, R, 1081] of FLEET_ROBOTS robots, each on its own
+    corridor trajectory (start 0-6.75 m along the corridor, 0.05-0.12 m
+    per scan, its own noise seed), and each robot's true poses
+    f32[T, R, 3]."""
+    import hector_slam_tpu_torch as ht
+    from hector_slam_tpu_torch.io.simulator import (World, corridor_trajectory,
+                                                    simulate_trajectory)
+    world = World.corridor(length=18.0, width=3.0)
+    ranges, truth = [], []
+    for r in range(FLEET_ROBOTS):
+        advance = 0.05 + 0.07 * ((r * 37) % FLEET_ROBOTS) / (FLEET_ROBOTS - 1)
+        poses = corridor_trajectory(FLEET_STEPS, advance=advance, weave=0.03)
+        poses[:, 0] += 0.45 * (r % 16)
+        truth.append(poses)
+        ranges.append(simulate_trajectory(world, poses, ht.LaserModel(),
+                                          range_noise_std=0.005,
+                                          seed=100 + r))
+    return np.stack(ranges, 1), np.stack(truth, 1)
+
+
+def relative_pose(start, pose):
+    """pose in the frame of start (both [..., 3], world)."""
+    c, s = np.cos(start[..., 2]), np.sin(start[..., 2])
+    dx, dy = pose[..., 0] - start[..., 0], pose[..., 1] - start[..., 1]
+    return np.stack([c * dx + s * dy, -s * dx + c * dy,
+                     pose[..., 2] - start[..., 2]], -1)
+
+
+def phase_fleet(kernels):
+    import hector_slam_tpu_torch as ht
+    cfg = ht.BENCH_CONFIG
+    laser = ht.LaserModel()
+    ranges, truth = fleet_ranges()
+
+    def scans_at(t):
+        return ht.stack_scans([ht.scan_from_ranges(
+            rg, cfg.map.level_scale(0), laser, cfg.max_beams)
+            for rg in ranges[t]])
+
+    scans = [scans_at(t) for t in range(FLEET_STEPS)]
+    fleet = ht.init_fleet(cfg, FLEET_ROBOTS)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    poses, gates = [], []
+    for t in range(FLEET_STEPS):
+        fleet, m = ht.fleet_step(fleet, scans[t], cfg)
+        poses.append(fleet.pose)
+        gates.append(m.map_updated)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    first = (poses[0], scans[0])   # the first update, every robot gated
+    poses = torch.stack(poses).cpu().numpy()
+    gates = torch.stack(gates).cpu().numpy()
+    updates = int(gates.any(1).sum())
+    paints = 2 * cfg.map.levels * updates
+
+    # each checked robot alone through slam_step, on the card
+    solo = {}
+    for r in FLEET_CHECKED:
+        st = ht.init_state(cfg)
+        sp, sg = [], []
+        for t in range(FLEET_STEPS):
+            st, sm = ht.slam_step(st, ht.Scan(scans[t].points[r],
+                                              scans[t].origo[r],
+                                              scans[t].mask[r]), cfg)
+            sp.append(st.pose)
+            sg.append(sm.map_updated)
+        solo[r] = dict(
+            gates_equal=bool((torch.stack(sg).cpu().numpy()
+                              == gates[:, r]).all()),
+            max_pose_diff_m=float(np.abs(torch.stack(sp).cpu().numpy()
+                                         - poses[:, r]).max()),
+            maps_bit_equal=all(torch.equal(a[r], b) for a, b in
+                               zip(fleet.log_odds, st.log_odds)))
+    # SLAM poses live in each robot's start frame: compare displacements
+    err = np.linalg.norm(relative_pose(truth[0], truth)[..., :2]
+                         - poses[..., :2], axis=-1)
+    ok = (np.isfinite(poses).all() and poses.shape == (
+        FLEET_STEPS, FLEET_ROBOTS, 3) and gates[0].all()
+        and launches["interp_moments"] == 0
+        and launches["paint_cells"] == paints and launches["paint_cells"] > 0
+        and float(np.percentile(err, 90)) < 0.05
+        and all(v["gates_equal"] and v["max_pose_diff_m"] <= 1e-6
+                and v["maps_bit_equal"] for v in solo.values()))
+    emit("fleet", ok=ok, robots=FLEET_ROBOTS, steps=FLEET_STEPS,
+         seconds=seconds, steps_per_s=FLEET_STEPS / seconds,
+         robot_scans_per_s=FLEET_STEPS * FLEET_ROBOTS / seconds,
+         gates_per_step=gates.sum(1).tolist(), map_updates=updates,
+         kernel_launches=launches, expected_paint_launches=paints,
+         paint_launches_per_step=launches["paint_cells"] / FLEET_STEPS,
+         truncated_free_cells=int(m.truncated_free_cells.sum()),
+         displacement_err_p90_m=float(np.percentile(err, 90)),
+         displacement_err_max_m=float(err.max()),
+         solo_replays={str(k): v for k, v in solo.items()})
+    if not ok:
+        raise SystemExit("the fleet failed its checks")
+    return launches, first
+
+
+def phase_shared_fleet(kernels):
+    import hector_slam_tpu_torch as ht
+    ref = np.load(ROOT / "tests" / "fixtures"
+                  / "shared_fleet_jax_reference.npz")
+    if str(ref["config"]) != "BENCH_CONFIG":
+        raise SystemExit(f"the fleet reference is for {ref['config']}")
+    cfg = ht.BENCH_CONFIG
+    laser = ht.LaserModel()
+    r, steps = int(ref["robots"]), int(ref["steps"])
+    scans = [ht.stack_scans([ht.scan_from_ranges(
+        rg, cfg.map.level_scale(0), laser, cfg.max_beams)
+        for rg in ref["ranges"][t]]) for t in range(steps)]
+    state = ht.init_shared_fleet(cfg, r, start_poses=ref["start_poses"])
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    poses, gates, trunc = [], [], []
+    for t in range(steps):
+        state, m = ht.shared_fleet_step(state, scans[t], cfg)
+        poses.append(state.pose)
+        gates.append(m.map_updated)
+        trunc.append(m.truncated_free_cells)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    first = (poses[0], scans[0])   # the first update, every robot gated
+    poses = torch.stack(poses).cpu().numpy()
+    gates = torch.stack(gates).cpu().numpy()
+    occ = [int((lo > 0).sum()) for lo in state.log_odds]
+    free = [int((lo < 0).sum()) for lo in state.log_odds]
+    rmse = float(np.sqrt(np.mean((poses[..., :2]
+                                  - ref["poses"][..., :2]) ** 2)))
+    count = int(state.map_update_count)
+    paints = 2 * cfg.map.levels * count
+    ok = (bool((gates == ref["map_updated"]).all())
+          and count == int(ref["map_update_count"]) and rmse < RMSE_BUDGET_M
+          and occ == ref["occupied_cells"].tolist()
+          and free == ref["free_cells"].tolist()
+          and torch.stack(trunc).cpu().numpy().tolist()
+          == ref["truncated_free_cells"].tolist()
+          and np.isfinite(poses).all()
+          and launches["paint_cells"] == paints and paints > 0)
+    emit("shared_fleet", ok=ok, robots=r, steps=steps, seconds=seconds,
+         steps_per_s=steps / seconds, robot_scans_per_s=steps * r / seconds,
+         gate_agreement=int((gates == ref["map_updated"]).sum()),
+         gates=int(gates.size), gates_per_step=gates.sum(1).tolist(),
+         map_update_count=count,
+         jax_map_update_count=int(ref["map_update_count"]),
+         pose_rmse_m=rmse, max_pose_diff=float(
+             np.abs(poses - ref["poses"]).max()),
+         occupied_cells=occ, jax_occupied_cells=ref["occupied_cells"].tolist(),
+         free_cells=free, jax_free_cells=ref["free_cells"].tolist(),
+         kernel_launches=launches, expected_paint_launches=paints)
+    if not ok:
+        raise SystemExit("the shared fleet disagrees with the JAX reference")
+    return launches, first
+
+
+def paint_index_sets(cfg, poses, scan, layout):
+    """(name, indices i32, num_cells) of every paint one map update makes
+    at these poses: one scan (``single``), R scans into per-robot grids
+    (``per_robot``) or into one shared grid (``shared``)."""
+    from hector_slam_tpu_torch.core import mapping as tm
+    from hector_slam_tpu_torch.core.matcher import level_points
+    for level in range(cfg.map.levels):
+        sx, sy = cfg.map.level_size(level)
+        p = tm._bresenham_params(
+            (sy, sx), poses, level_points(scan.points, level),
+            level_points(scan.origo, level), scan.mask,
+            cfg.map.top_left_offset, cfg.map.level_scale(level))
+        for kind, flat in (
+                ("free", tm._dense_free_flat(p, sx * sy,
+                                             cfg.level_max_ray_cells(level))),
+                ("occupied", tm._occ_flat(p, (sy, sx)))):
+            n = sx * sy
+            if layout == "per_robot":
+                flat, n = tm._per_robot_indices(flat, (sy, sx))
+            yield (f"{layout} L{level} {kind}",
+                   flat.reshape(-1).contiguous(), n)
+
+
+def phase_paint(dev, inputs):
+    """``inputs``: {path: (layout, poses, scan, launches on that path)}."""
+    import hector_slam_tpu_torch as ht
+    from hector_slam_tpu_torch.ops.paint_cells import (_launch, paint_cells,
+                                                       paint_cells_plain)
+    cfg = ht.BENCH_CONFIG
+    rng = np.random.default_rng(2)
+    side = 1024   # the probe's own workload (tools/probe_mosaic_store.py)
+    ys = rng.integers(0, side, 65536)
+    xs = rng.integers(0, side, 65536)
+    sets = [("probe 1024^2 x 65536", None, torch.from_numpy(
+        (ys * side + xs).astype(np.int32)).to(dev), side * side)]
+    for path, (layout, poses, scan, _) in inputs.items():
+        sets += [(name, path, flat, n) for name, flat, n in
+                 paint_index_sets(cfg, poses, scan, layout)]
+    rows, mismatched = [], 0
+    true = torch.ones((), dtype=torch.bool, device=dev)
+    for name, path, flat, n in sets:
+        k1 = paint_cells(flat, n)
+        k2 = paint_cells(flat, n)
+        plain = paint_cells_plain(flat, n)
+        bad = int((k1 != plain).sum())
+        mismatched += bad
+        grid = torch.zeros(n, dtype=torch.bool, device=dev)
+        slots = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+        idx = flat.to(torch.int64)
+        bytes_ = 4 * flat.numel() + n   # indices read once, grid written once
+        rows.append(dict(
+            set=name, path=path, indices=flat.numel(), num_cells=n,
+            painted=int(plain.sum()), mismatched_cells=bad,
+            repeat_bit_identical=bool(torch.equal(k1, k2)),
+            # the function's device work (zeroed grid + kernel), the bare
+            # launch into a zeroed grid, the zero fill alone, the plain
+            # version, and one index_put_ into a zeroed grid with a
+            # sentinel slot
+            ms=cuda_ms(lambda: paint_cells(flat, n), 20),
+            launch_ms=cuda_ms(lambda: _launch(flat, grid), 20),
+            zero_ms=cuda_ms(lambda: torch.zeros(n, dtype=torch.bool,
+                                                device=dev), 20),
+            plain_ms=cuda_ms(lambda: paint_cells_plain(flat, n), 5),
+            library_ms=cuda_ms(lambda: torch.zeros(
+                n + 1, dtype=torch.bool, device=dev).index_put_(
+                    (idx,), true), 10),
+            index_put_into_zeroed_ms=cuda_ms(
+                lambda: slots.index_put_((idx,), true), 10),
+            bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3))
+    ok = mismatched == 0 and all(r["repeat_bit_identical"] for r in rows)
+    emit("paint_vs_plain", ok=ok, tolerance="exact", sets=rows)
+    if not ok:
+        raise SystemExit("paint_cells disagrees with its plain version")
+    return rows, mismatched
+
+
+def run_paths(dev):
+    """Drives the main path's phases on ``dev`` and returns the kernels
+    line's entries."""
+    from hector_slam_tpu_torch.ops.interp_moments import interp_moments
+    from hector_slam_tpu_torch.ops.paint_cells import paint_cells
+    kernels = {"interp_moments": interp_moments, "paint_cells": paint_cells}
+    abs_kvp = phase_kernel_vs_plain(dev)
+    paths, paint_inputs = {}, {}
+    paths["sequential"], (pose, scan) = phase_sequential(kernels)
+    paint_inputs["sequential"] = ("single", pose, scan)
+    paths["batched"], levels, abs_main = phase_batched(dev, kernels)
+    paths["fleet"], (poses, scans) = phase_fleet(kernels)
+    paint_inputs["fleet"] = ("per_robot", poses, scans)
+    paths["shared_fleet"], (poses, scans) = phase_shared_fleet(kernels)
+    paint_inputs["shared_fleet"] = ("shared", poses, scans)
+    paint_rows, paint_bad = phase_paint(dev, {
+        k: v + (paths[k]["paint_cells"],) for k, v in paint_inputs.items()})
+    for name in kernels:
+        if not any(p[name] for p in paths.values()):
+            raise SystemExit(f"{name} was launched on no main path")
+
+    # launch-weighted means over the main path's level mix (6+4+4 steps)
+    total = sum(lv["gn_steps"] for lv in levels)
+
+    def mean(key):
+        return sum(lv[key] * lv["gn_steps"] for lv in levels) / total
+
+    # paint: each path's launches spread evenly over its six sets
+    weight = {r["set"]: paths[r["path"]]["paint_cells"] / len(
+        [q for q in paint_rows if q["path"] == r["path"]])
+        for r in paint_rows if r["path"]}
+    wsum = sum(weight.values())
+
+    def pmean(key):
+        return sum(r[key] * weight[r["set"]] for r in paint_rows
+                   if r["set"] in weight) / wsum
+
+    def by_path(name):
+        return {k: p[name] for k, p in paths.items()}
+
+    return [{
+        "name": "interp_moments",
+        "route": "cuda",
+        "source": "hector_slam_tpu_torch/csrc/interp_moments.cu",
+        "replaces": "hector_slam_tpu/ops/pallas_interp.py:337",
+        "launches": sum(by_path("interp_moments").values()),
+        "launches_by_path": by_path("interp_moments"),
+        "max_abs_err": max(abs_kvp, abs_main),
+        "ms": mean("kernel_ms"),
+        "plain_ms": mean("plain_ms"),
+        "bound_ms": mean("bound_ms"),
+        "bound_by": ("operations" if mean("bound_ops_ms")
+                     >= mean("bound_bytes_ms") else "bytes"),
+        "library_ms": None,
+    }, {
+        "name": "paint_cells",
+        "route": "cuda",
+        "source": "hector_slam_tpu_torch/csrc/paint_cells.cu",
+        "replaces": "tools/probe_mosaic_store.py:55",
+        "launches": sum(by_path("paint_cells").values()),
+        "launches_by_path": by_path("paint_cells"),
+        "max_abs_err": paint_bad,
+        "ms": pmean("ms"),
+        "plain_ms": pmean("plain_ms"),
+        "bound_ms": pmean("bound_ms"),
+        "bound_by": "bytes",
+        "library_ms": pmean("library_ms"),
+    }]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -316,35 +656,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    from hector_slam_tpu_torch.ops.interp_moments import interp_moments
-
     smi = phase_device()
     phase_build()
-    abs_kvp = phase_kernel_vs_plain(dev)
-    phase_sequential(interp_moments)
-    launches, levels, abs_main = phase_batched(dev, interp_moments)
-
-    # launch-weighted means over the main path's level mix (6+4+4 steps)
-    total = sum(lv["gn_steps"] for lv in levels)
-
-    def mean(key):
-        return sum(lv[key] * lv["gn_steps"] for lv in levels) / total
-
-    print(json.dumps({"kernels": [{
-        "name": "interp_moments",
-        "route": "cuda",
-        "source": "hector_slam_tpu_torch/csrc/interp_moments.cu",
-        "replaces": "hector_slam_tpu/ops/pallas_interp.py:337",
-        "launches": launches,
-        "max_abs_err": max(abs_kvp, abs_main),
-        "ms": mean("kernel_ms"),
-        "plain_ms": mean("plain_ms"),
-        "bound_ms": mean("bound_ms"),
-        "bound_by": ("operations" if mean("bound_ops_ms")
-                     >= mean("bound_bytes_ms") else "bytes"),
-        "library_ms": None,
-    }]}), flush=True)
+    print(json.dumps({"kernels": run_paths(torch.device("cuda"))}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

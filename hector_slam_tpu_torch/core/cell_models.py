@@ -65,10 +65,10 @@ def prob_grid(storage: torch.Tensor, model: str) -> torch.Tensor:
 
 
 def reflectance_prob_grid(storage: torch.Tensor) -> torch.Tensor:
-    """[2, H, W] (visited, reflected) -> prob grid [H, W]; cells never
-    visited read 0.5 (the reset value of probOccupied)."""
-    visited = storage[0]
-    reflected = storage[1]
+    """[..., 2, H, W] (visited, reflected) -> prob grid [..., H, W]; cells
+    never visited read 0.5 (the reset value of probOccupied)."""
+    visited = storage[..., 0, :, :]
+    reflected = storage[..., 1, :, :]
     return torch.where(visited > 0.0,
                        reflected / torch.clamp(visited, min=1.0), 0.5)
 
@@ -77,9 +77,10 @@ def apply_update(storage: torch.Tensor, free_only: torch.Tensor,
                  occ_set: torch.Tensor, model: str,
                  log_odds_free: float, log_odds_occupied: float
                  ) -> torch.Tensor:
-    """Applies one scan's free/occupied cell sets to a level's storage.
-    ``free_only`` must already exclude occupied cells (occupied wins).
-    Returns a new tensor; ``storage`` is not modified."""
+    """Applies one scan's free/occupied cell sets to a level's storage
+    (or R robots' sets to R storages, with a leading robot axis on all
+    three). ``free_only`` must already exclude occupied cells (occupied
+    wins). Returns a new tensor; ``storage`` is not modified."""
     f32 = storage.dtype
     if model == LOG_ODDS:
         occ_applied = occ_set & (storage < _OCC_CLAMP)
@@ -96,7 +97,7 @@ def apply_update(storage: torch.Tensor, free_only: torch.Tensor,
                 + torch.where(free_applied, float(_SC_FREE), 0.0).to(f32)
                 + torch.where(occ_applied, float(_SC_OCC), 0.0).to(f32))
     if model == REFLECTANCE:
-        visited = storage[0] + free_only.to(f32) + occ_set.to(f32)
-        reflected = storage[1] + occ_set.to(f32)
-        return torch.stack([visited, reflected])
+        visited = storage[..., 0, :, :] + free_only.to(f32) + occ_set.to(f32)
+        reflected = storage[..., 1, :, :] + occ_set.to(f32)
+        return torch.stack([visited, reflected], dim=-3)
     raise ValueError(f"unknown cell model {model!r}")

@@ -93,11 +93,12 @@ def normalize_angle(angle: torch.Tensor) -> torch.Tensor:
 
 def pose_difference_larger_than(pose1: torch.Tensor, pose2: torch.Tensor,
                                 dist_thresh, angle_thresh) -> torch.Tensor:
-    """Map-update gate predicate (util/UtilFunctions.h:73-92)."""
-    d = pose1[:2] - pose2[:2]
+    """Map-update gate predicate (util/UtilFunctions.h:73-92), for poses
+    f32[..., 3] (one gate per robot of a fleet)."""
+    d = pose1[..., :2] - pose2[..., :2]
     dd = d * d
-    dist_exceeded = torch.sqrt(dd[0] + dd[1]) > _f32(dist_thresh)
-    angle_diff = pose1[2] - pose2[2]
+    dist_exceeded = torch.sqrt(dd[..., 0] + dd[..., 1]) > _f32(dist_thresh)
+    angle_diff = pose1[..., 2] - pose2[..., 2]
     pi = float(_PI32)
     two_pi = float(np.float32(2) * _PI32)
     angle_diff = torch.where(angle_diff > pi, angle_diff - two_pi, angle_diff)

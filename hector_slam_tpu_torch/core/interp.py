@@ -16,8 +16,9 @@ Discrete behaviours replicated exactly:
     two row differences with the *x* fraction, the y-gradient the column
     differences with the *y* fraction.
 
-Every function here takes a pose f32[3] or a batch of poses f32[B, 3];
-the batched form is the plain version of the moments kernel.
+Every function here takes a pose f32[3] or a batch of poses f32[B, 3]
+(hypotheses sharing one scan, or robots with a scan and a map each); the
+hypothesis batch is the plain version of the moments kernel.
 """
 
 from __future__ import annotations
@@ -30,15 +31,16 @@ from .cell_models import prob_grid, storage_to_prob
 
 
 def quad_pack(prob: torch.Tensor) -> torch.Tensor:
-    """Probability grid f32[H, W] -> f32[H*W, 4] neighbour quads
+    """Probability grid f32[..., H, W] -> f32[..., H*W, 4] neighbour quads
     (P00, P10, P01, P11 per cell). The rolled wrap-around entries in the
     last row/column are never read: interp clips cell indices to
     (h-2, w-2)."""
-    p10 = torch.roll(prob, -1, dims=1)
-    p01 = torch.roll(prob, -1, dims=0)
-    p11 = torch.roll(p01, -1, dims=1)
-    return torch.stack([prob.reshape(-1), p10.reshape(-1), p01.reshape(-1),
-                        p11.reshape(-1)], dim=-1)
+    p10 = torch.roll(prob, -1, dims=-1)
+    p01 = torch.roll(prob, -1, dims=-2)
+    p11 = torch.roll(p01, -1, dims=-1)
+    lead = prob.shape[:-2]
+    return torch.stack([t.reshape(lead + (-1,)) for t in (prob, p10, p01,
+                                                            p11)], dim=-1)
 
 
 def quad_pack_storage(storage: torch.Tensor, cell_model: str) -> torch.Tensor:
@@ -78,10 +80,18 @@ def _neighbor_derivs(p00, p10, p01, p11, fx, fy, in_bounds):
 
 
 def _interp_quad_bounds(quad, shape, coords):
+    """Gathers each query's quad: from one grid ``quad`` f32[H*W, 4], or,
+    for per-robot grids f32[R, H*W, 4], robot r's queries (``coords[r]``)
+    from grid r through an int64 offset r*H*W."""
     in_bounds, xi, yi, fx, fy = _cells(coords, shape)
     w = shape[1]
     flat = yi.to(torch.int64) * w + xi.to(torch.int64)
-    nbrs = quad[flat.reshape(-1)].reshape(xi.shape + (4,))
+    if quad.dim() == 3:
+        r = quad.shape[0]
+        base = torch.arange(r, dtype=torch.int64, device=flat.device) \
+            * quad.shape[1]
+        flat = flat + base.reshape((r,) + (1,) * (flat.dim() - 1))
+    nbrs = quad.reshape(-1, 4)[flat.reshape(-1)].reshape(xi.shape + (4,))
     out = _neighbor_derivs(nbrs[..., 0], nbrs[..., 1], nbrs[..., 2],
                            nbrs[..., 3], fx, fy, in_bounds)
     return out, in_bounds
@@ -120,25 +130,45 @@ class NormalEqs(NamedTuple):
     used: torch.Tensor   # f32[...] in-bounds valid queries per pose
 
 
+def beam_sum(terms: torch.Tensor) -> torch.Tensor:
+    """Sum over the last (beam) axis in a fixed pairwise order: zero-pad
+    to a power of two, then add halves. Every step is elementwise, so a
+    row's sum does not depend on the batch it sits in or on the device's
+    reduction kernel: a fleet's robot r sums exactly as a lone
+    ``slam_step`` does. (``torch.sum`` picks its order from the shape.)"""
+    n = terms.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width != n:
+        terms = torch.nn.functional.pad(terms, (0, width - n))
+    while terms.shape[-1] > 1:
+        half = terms.shape[-1] // 2
+        terms = terms[..., :half] + terms[..., half:]
+    return terms[..., 0]
+
+
 def normal_eqs_quad(
-    quad: torch.Tensor,        # f32[H*W, 4] from quad_pack
+    quad: torch.Tensor,        # f32[H*W, 4] or per-robot f32[R, H*W, 4]
     shape: Tuple[int, int],
     pose_map: torch.Tensor,    # f32[3] or f32[B, 3] map-frame poses
-    points: torch.Tensor,      # f32[N, 2] beam endpoints (map scale)
-    mask: torch.Tensor,        # bool[N]
+    points: torch.Tensor,      # f32[N, 2] or per-pose f32[B, N, 2]
+    mask: torch.Tensor,        # bool[N] or bool[B, N]
 ) -> NormalEqs:
     """getCompleteHessianDerivs over a quad-packed grid for one pose or a
     batch of poses, plus the count of queries that contributed. Padded
     and out-of-bounds beams contribute exactly zero (their gradients are
     zero), as the reference skips them via the (0,0,0) interp return.
 
+    A batch either shares one scan (B hypotheses, points [N, 2]) or has
+    one scan per pose (R robots, points [R, N, 2]); per-robot quads
+    [R, H*W, 4] give each robot its own map.
+
     The nine moments are summed as elementwise products reduced over the
-    beam axis (no matmul, so no TF32 path on the card); only the f32
-    summation order differs from the JAX ``jnp.dot``."""
+    beam axis by ``beam_sum`` (no matmul, so no TF32 path on the card);
+    only the f32 summation order differs from the JAX ``jnp.dot``."""
     sin_rot = torch.sin(pose_map[..., 2:3])
     cos_rot = torch.cos(pose_map[..., 2:3])
-    px = points[:, 0]
-    py = points[:, 1]
+    px = points[..., 0]
+    py = points[..., 1]
     # Eigen applies Affine2f as m00*px + (m01*py + t)
     # (hector_slam_tpu/core/interp.py:184-189); torch keeps the association
     tx = cos_rot * px + (-sin_rot * py + pose_map[..., 0:1])
@@ -153,9 +183,9 @@ def normal_eqs_quad(
     rot = (-sin_rot * px - cos_rot * py) * gx + \
         (cos_rot * px - sin_rot * py) * gy
     rot = torch.where(mask, rot, zero)
-    s = [t.sum(dim=-1) for t in (gx * gx, gx * gy, gx * rot, gy * gy,
-                                 gy * rot, rot * rot,
-                                 gx * fun, gy * fun, rot * fun)]
+    s = beam_sum(torch.stack([gx * gx, gx * gy, gx * rot, gy * gy,
+                              gy * rot, rot * rot, gx * fun, gy * fun,
+                              rot * fun], dim=-2)).unbind(-1)
     used = (in_bounds & mask).sum(dim=-1).to(torch.float32)
     return NormalEqs(assemble_hessian(s[0], s[1], s[2], s[3], s[4], s[5]),
                      torch.stack(s[6:9], dim=-1), used)

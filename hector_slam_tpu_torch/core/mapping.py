@@ -2,13 +2,21 @@
 a commutative scatter, replacing the serial per-beam loop of
 map/OccGridMapBase.h:121-260.
 
-Counterpart of the dense path of ``hector_slam_tpu/core/mapping.py``,
-which derives why the per-scan update is two boolean masks:
+Counterpart of ``hector_slam_tpu/core/mapping.py``, which derives why the
+per-scan update is two boolean masks:
   new = old + logOddsFree * [cell in free-set and not in occ-set]
             + logOddsOcc  * [cell in occ-set and old < 50]
 The free cell j of a beam sits at the closed-form Bresenham offset
 ``start + j*offset_a + ((abs_da//2 + j*abs_db)//abs_da)*offset_b``, so
-every free cell is a dense [N, K] integer computation.
+every free cell is a dense [N, K] integer computation. Each cell set is
+one ``paint_cells`` call (the CUDA kernel ``csrc/paint_cells.cu`` on the
+card).
+
+The rasterizer broadcasts over leading axes: a fleet's R scans
+(``rasterize_fleet``) cost one paint per set and level, either into one
+[R*H*W] grid (per-robot maps, each robot's cells offset by r*H*W) or into
+one [H*W] grid (a shared map: painting every gated robot's cells into one
+grid IS the OR over robots).
 """
 
 from __future__ import annotations
@@ -18,10 +26,13 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from ..config import SlamConfig
+from ..ops.paint_cells import paint_cells
 from ..types import Scan
 from .cell_models import apply_update
 from .grid import world_to_map_pose
 from .matcher import level_points
+
+_SEG = 64   # cells per compacted beam segment (rasterize_scan_seg)
 
 
 def _sign_ref(x: torch.Tensor) -> torch.Tensor:
@@ -31,42 +42,46 @@ def _sign_ref(x: torch.Tensor) -> torch.Tensor:
 
 
 class _RayParams(NamedTuple):
-    """Flat-offset Bresenham parameters for one scan's beams."""
+    """Flat-offset Bresenham parameters of one scan's beams ([N]) or of R
+    scans' beams ([R, N])."""
 
-    ex: torch.Tensor            # i32[N] end cell x
-    ey: torch.Tensor            # i32[N] end cell y
-    valid: torch.Tensor         # bool[N]
-    abs_da: torch.Tensor        # i32[N] dominant-axis span
-    abs_db: torch.Tensor        # i32[N] minor-axis span
-    offset_a: torch.Tensor      # i32[N] flat step per dominant cell
-    offset_b: torch.Tensor      # i32[N] flat step on minor advance
-    start_offset: torch.Tensor  # i32[] shared sensor-origin cell
+    ex: torch.Tensor            # i32[..., N] end cell x
+    ey: torch.Tensor            # i32[..., N] end cell y
+    valid: torch.Tensor         # bool[..., N]
+    abs_da: torch.Tensor        # i32[..., N] dominant-axis span
+    abs_db: torch.Tensor        # i32[..., N] minor-axis span
+    offset_a: torch.Tensor      # i32[..., N] flat step per dominant cell
+    offset_b: torch.Tensor      # i32[..., N] flat step on minor advance
+    start_offset: torch.Tensor  # i32[..., 1] the scan's sensor-origin cell
 
 
 def _bresenham_params(grid_shape, pose_world, scan_points, scan_origo,
                       scan_mask, offset, scale) -> _RayParams:
     """Beam start/end cells, validity and Bresenham parameters with the
     reference's rounding and validity rules (OccGridMapBase.h:134-158,
-    176,186)."""
+    176,186). Poses f32[..., 3], points f32[..., N, 2], origo f32[..., 2],
+    mask bool[..., N]."""
     h, w = grid_shape
     pose_map = world_to_map_pose(pose_world, offset, scale)
-    s = torch.sin(pose_map[2])
-    c = torch.cos(pose_map[2])
+    s = torch.sin(pose_map[..., 2:3])
+    c = torch.cos(pose_map[..., 2:3])
+    tx = pose_map[..., 0:1]
+    ty = pose_map[..., 1:2]
 
     # beam start: transform origo in Eigen's m00*px + (m01*py + t) order,
     # round via +0.5 then int cast (OccGridMapBase.h:134-137); the +0.5
     # rounding can flip a cell on a 1-ulp difference, so the expression
     # order is the JAX package's (hector_slam_tpu/core/mapping.py:68-77)
-    ox = c * scan_origo[0] + (-s * scan_origo[1] + pose_map[0])
-    oy = s * scan_origo[0] + (c * scan_origo[1] + pose_map[1])
+    ox = c * scan_origo[..., 0:1] + (-s * scan_origo[..., 1:2] + tx)
+    oy = s * scan_origo[..., 0:1] + (c * scan_origo[..., 1:2] + ty)
     bx = (ox + 0.5).to(torch.int32)
     by = (oy + 0.5).to(torch.int32)
 
     # beam endpoints, same rounding (OccGridMapBase.h:148-155)
-    ex = (c * scan_points[:, 0] + (-s * scan_points[:, 1] + pose_map[0])
-          + 0.5).to(torch.int32)
-    ey = (s * scan_points[:, 0] + (c * scan_points[:, 1] + pose_map[1])
-          + 0.5).to(torch.int32)
+    px = scan_points[..., 0]
+    py = scan_points[..., 1]
+    ex = (c * px + (-s * py + tx) + 0.5).to(torch.int32)
+    ey = (s * px + (c * py + ty) + 0.5).to(torch.int32)
 
     # skip if start==end cell (OccGridMapBase.h:158), or start/end outside
     # the map (OccGridMapBase.h:176,186)
@@ -93,44 +108,59 @@ def _bresenham_params(grid_shape, pose_world, scan_points, scan_origo,
 
 
 def _scatter_true(flat: torch.Tensor, grid_shape) -> torch.Tensor:
-    """Commutative scatter-OR. The sentinel index (== num cells) lands in
-    one extra slot that is sliced off (index_put_ has no drop mode)."""
+    """Commutative scatter-OR of every index (whatever the leading axes)
+    into one bool[H, W]; the sentinel index (== num cells) drops."""
     h, w = grid_shape
-    out = torch.zeros(h * w + 1, dtype=torch.bool, device=flat.device)
-    out[flat.reshape(-1).to(torch.int64)] = True
-    return out[:-1].reshape(h, w)
+    return paint_cells(flat.reshape(-1), h * w).reshape(h, w)
 
 
-def _dense_free_set(p: _RayParams, grid_shape, max_ray_cells: int):
-    """Free set via the dense [N, K] slot scatter (one slot per possible
-    cell of every beam; masked slots target the sentinel)."""
-    num_cells = grid_shape[0] * grid_shape[1]
+def _per_robot_indices(flat: torch.Tensor, grid_shape):
+    """Robot r's indices (``flat[r]``) offset by r*H*W into one grid of
+    R*H*W cells, every sentinel moved to that grid's own sentinel R*H*W.
+    Returns (indices i32, R*H*W)."""
+    n = grid_shape[0] * grid_shape[1]
+    r = flat.shape[0]
+    base = (torch.arange(r, dtype=torch.int32, device=flat.device) * n
+            ).reshape((r,) + (1,) * (flat.dim() - 1))
+    sentinel = torch.full((), r * n, dtype=torch.int32, device=flat.device)
+    return torch.where(flat < n, flat + base, sentinel), r * n
+
+
+def _scatter_true_per_robot(flat: torch.Tensor, grid_shape) -> torch.Tensor:
+    """Scatter-OR of robot r's indices into grid r of one bool[R, H, W]
+    paint."""
+    idx, num_cells = _per_robot_indices(flat, grid_shape)
+    return paint_cells(idx.reshape(-1), num_cells).reshape(
+        (flat.shape[0],) + tuple(grid_shape))
+
+
+def _dense_free_flat(p: _RayParams, num_cells: int,
+                     max_ray_cells: int) -> torch.Tensor:
+    """Free cells as the dense [..., N, K] slot tensor (one slot per
+    possible cell of every beam; masked slots hold the sentinel)."""
     abs_da_safe = torch.clamp(p.abs_da, min=1)   # valid beams have >= 1
     steps = torch.arange(max_ray_cells, dtype=torch.int32,
-                         device=p.abs_da.device)[None, :]        # [1, K]
-    err0 = (p.abs_da // 2)[:, None]
-    minor = (err0 + steps * p.abs_db[:, None]) // abs_da_safe[:, None]
-    free_flat = (p.start_offset + steps * p.offset_a[:, None]
-                 + minor * p.offset_b[:, None])
-    free_mask = p.valid[:, None] & (steps < p.abs_da[:, None])
+                         device=p.abs_da.device)                  # [K]
+    err0 = (p.abs_da // 2)[..., None]
+    minor = (err0 + steps * p.abs_db[..., None]) // abs_da_safe[..., None]
+    free_flat = (p.start_offset[..., None] + steps * p.offset_a[..., None]
+                 + minor * p.offset_b[..., None])
+    free_mask = p.valid[..., None] & (steps < p.abs_da[..., None])
     sentinel = torch.full((), num_cells, dtype=torch.int32,
                           device=free_flat.device)
-    return _scatter_true(torch.where(free_mask, free_flat, sentinel),
-                         grid_shape)
+    return torch.where(free_mask, free_flat, sentinel)
 
 
-def _occ_set(p: _RayParams, grid_shape) -> torch.Tensor:
-    num_cells = grid_shape[0] * grid_shape[1]
-    sentinel = torch.full((), num_cells, dtype=torch.int32,
-                          device=p.ex.device)
-    occ_flat = torch.where(p.valid, p.ey * grid_shape[1] + p.ex, sentinel)
-    return _scatter_true(occ_flat, grid_shape)
+def _occ_flat(p: _RayParams, grid_shape) -> torch.Tensor:
+    sentinel = torch.full((), grid_shape[0] * grid_shape[1],
+                          dtype=torch.int32, device=p.ex.device)
+    return torch.where(p.valid, p.ey * grid_shape[1] + p.ex, sentinel)
 
 
 def _truncated_count(p: _RayParams, max_ray_cells: int) -> torch.Tensor:
     # cells dropped by the static cap (the reference marks them all)
     over = torch.clamp(p.abs_da - max_ray_cells, min=0)
-    return torch.where(p.valid, over, torch.zeros_like(over)).sum().to(
+    return torch.where(p.valid, over, torch.zeros_like(over)).sum(-1).to(
         torch.int32)
 
 
@@ -152,8 +182,106 @@ def rasterize_scan(
     divergence from the reference)."""
     p = _bresenham_params(grid_shape, pose_world, scan_points,
                           scan_origo, scan_mask, offset, scale)
-    return (_dense_free_set(p, grid_shape, max_ray_cells),
-            _occ_set(p, grid_shape), _truncated_count(p, max_ray_cells))
+    num_cells = grid_shape[0] * grid_shape[1]
+    return (_scatter_true(_dense_free_flat(p, num_cells, max_ray_cells),
+                          grid_shape),
+            _scatter_true(_occ_flat(p, grid_shape), grid_shape),
+            _truncated_count(p, max_ray_cells))
+
+
+def default_segment_budget(n_beams: int, max_ray_cells: int) -> int:
+    """The JAX package's default segment budget: a sixth of the dense slot
+    count, floored at 1.25x the beam count (hector_slam_tpu/core/
+    mapping.py:222-237)."""
+    k_seg = -(-max_ray_cells // _SEG)
+    return max(8, n_beams + (n_beams >> 2), (n_beams * k_seg) // 6)
+
+
+def rasterize_scan_seg(
+    grid_shape: Tuple[int, int],
+    pose_world: torch.Tensor,
+    scan_points: torch.Tensor,
+    scan_origo: torch.Tensor,
+    scan_mask: torch.Tensor,
+    offset,
+    scale,
+    max_ray_cells: int,
+    budget_segments: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``rasterize_scan`` with segment compaction (hector_slam_tpu/core/
+    mapping.py:194-275): the valid 64-cell beam segments are compacted
+    with cumsum + ``torch.searchsorted`` into ``budget_segments`` slots
+    (default ``default_segment_budget``), so the paint reads ~valid cells
+    instead of the dense worst case.
+
+    Cell sets are bit-identical to ``rasterize_scan``. If the scan needs
+    more segments than the budget, the free set comes from the dense path
+    instead: a host branch on the segment total, the one device->host
+    sync this function adds."""
+    num_cells = grid_shape[0] * grid_shape[1]
+    n_beams = scan_points.shape[0]
+    k_seg = -(-max_ray_cells // _SEG)
+    if budget_segments <= 0:
+        budget_segments = default_segment_budget(n_beams, max_ray_cells)
+
+    p = _bresenham_params(grid_shape, pose_world, scan_points,
+                          scan_origo, scan_mask, offset, scale)
+    dev = p.abs_da.device
+    length = torch.clamp(p.abs_da, max=max_ray_cells)   # painted cells/beam
+
+    # valid segments per beam: ceil(length/SEG); compact (beam, seg) ids
+    n_seg = torch.where(p.valid, (length + (_SEG - 1)) // _SEG,
+                        torch.zeros_like(length))                 # [N]
+    seg_valid = (torch.arange(k_seg, dtype=torch.int32, device=dev)[None, :]
+                 < n_seg[:, None])                                # [N, Ks]
+    pos = torch.cumsum(seg_valid.reshape(-1), 0)                  # i64
+    total = int(pos[-1])                         # the one host sync
+    if total > budget_segments:
+        free_flat = _dense_free_flat(p, num_cells, max_ray_cells)
+    else:
+        slots = torch.arange(budget_segments, dtype=torch.int64, device=dev)
+        flat_ids = torch.clamp(torch.searchsorted(pos, slots + 1),
+                               max=n_beams * k_seg - 1)
+        b_i = flat_ids // k_seg
+        s_i = (flat_ids % k_seg).to(torch.int32)
+        j = (s_i[:, None] * _SEG
+             + torch.arange(_SEG, dtype=torch.int32, device=dev)[None, :])
+        abs_da_safe = torch.clamp(p.abs_da, min=1)
+        minor = ((p.abs_da // 2)[b_i][:, None]
+                 + j * p.abs_db[b_i][:, None]) // abs_da_safe[b_i][:, None]
+        flat = (p.start_offset + j * p.offset_a[b_i][:, None]
+                + minor * p.offset_b[b_i][:, None])
+        keep = (slots < total)[:, None] & (j < length[b_i][:, None])
+        sentinel = torch.full((), num_cells, dtype=torch.int32, device=dev)
+        free_flat = torch.where(keep, flat, sentinel)
+    return (_scatter_true(free_flat, grid_shape),
+            _scatter_true(_occ_flat(p, grid_shape), grid_shape),
+            _truncated_count(p, max_ray_cells))
+
+
+def rasterize_fleet(
+    grid_shape: Tuple[int, int],
+    poses_world: torch.Tensor,   # f32[R, 3]
+    scan_points: torch.Tensor,   # f32[R, N, 2] this level's scaled points
+    scan_origo: torch.Tensor,    # f32[R, 2]
+    scan_mask: torch.Tensor,     # bool[R, N]
+    offset,
+    scale,
+    max_ray_cells: int,
+    shared: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """R scans' free/occupied sets for one level, with the dense free set
+    and one paint per set. ``shared=False``: per-robot sets bool[R, H, W]
+    (robot r's scan into grid r); ``shared=True``: the OR over robots,
+    bool[H, W]. Robots whose mask is all False contribute nothing.
+    Returns (free, occ, truncated_cells i32[R])."""
+    p = _bresenham_params(grid_shape, poses_world, scan_points, scan_origo,
+                          scan_mask, offset, scale)
+    paint = _scatter_true if shared else _scatter_true_per_robot
+    num_cells = grid_shape[0] * grid_shape[1]
+    return (paint(_dense_free_flat(p, num_cells, max_ray_cells), grid_shape),
+            paint(_occ_flat(p, grid_shape), grid_shape),
+            _truncated_count(p, max_ray_cells))
 
 
 def update_level(
@@ -168,10 +296,24 @@ def update_level(
     log_odds_free: float,
     log_odds_occupied: float,
     cell_model: str = "log_odds",
+    raster_backend: str | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One scan's update of one level. Returns (new storage, truncated
-    cells i32[])."""
-    free_set, occ_set, truncated = rasterize_scan(
+    cells i32[]).
+
+    ``raster_backend``: "dense" (the dense-slot free set; the JAX "xla"
+    backend) or "seg" (``rasterize_scan_seg``); None means "dense", since
+    the card's paint costs per valid cell, not per slot. Both give
+    bit-identical cell sets."""
+    backend = "dense" if raster_backend is None else raster_backend
+    if backend == "seg":
+        raster = rasterize_scan_seg
+    elif backend == "dense":
+        raster = rasterize_scan
+    else:
+        raise ValueError(f"unknown raster_backend {raster_backend!r} "
+                         "(expected 'dense' or 'seg')")
+    free_set, occ_set, truncated = raster(
         tuple(log_odds.shape[-2:]), pose_world, scan_points, scan_origo,
         scan_mask, offset, scale, max_ray_cells)
     new = apply_update(log_odds, free_set & ~occ_set, occ_set, cell_model,
@@ -184,6 +326,7 @@ def update_pyramid(
     pose_world: torch.Tensor,
     scan: Scan,
     cfg: SlamConfig,
+    raster_backend: str | None = None,
 ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
     """MapRepMultiMap::updateByScan (MapRepMultiMap.h:134-147): every level
     updated independently with its 2^-level-scaled scan. Returns (new
@@ -199,7 +342,50 @@ def update_pyramid(
             mcfg.top_left_offset, mcfg.level_scale(level),
             cfg.level_max_ray_cells(level),
             cfg.update.log_odds_free, cfg.update.log_odds_occupied,
-            cfg.update.cell_model)
+            cfg.update.cell_model, raster_backend)
+        out.append(new_lo)
+        truncated_total = truncated_total + truncated
+    return tuple(out), truncated_total
+
+
+def update_fleet_pyramid(
+    log_odds_pyramid: Sequence[torch.Tensor],
+    poses_world: torch.Tensor,   # f32[R, 3]
+    scans: Scan,                 # points [R, N, 2], origo [R, 2], mask [R, N]
+    gates: torch.Tensor,         # bool[R] robots whose scan integrates
+    cfg: SlamConfig,
+    shared: bool = False,
+) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
+    """One map update of a whole fleet, level by level: non-gated robots'
+    beams are masked (their cells go to the sentinel), and each level costs
+    one paint per cell set for all R robots.
+
+    ``shared=False``: per-robot pyramids (a leading R axis on every level);
+    non-gated robots keep their maps through ``torch.where``.
+    ``shared=True``: one pyramid, updated once with the union of the gated
+    robots' cell sets (occupied wins across robots as across beams,
+    hector_slam_tpu/parallel/shared_map.py:6-15).
+
+    Returns (new pyramid, truncated cells i32[R] summed over levels; 0 for
+    non-gated robots)."""
+    mcfg = cfg.map
+    mask = scans.mask & gates[:, None]
+    out = []
+    truncated_total = torch.zeros(gates.shape, dtype=torch.int32,
+                                  device=gates.device)
+    for level, lo in enumerate(log_odds_pyramid):
+        free_set, occ_set, truncated = rasterize_fleet(
+            tuple(lo.shape[-2:]), poses_world,
+            level_points(scans.points, level),
+            level_points(scans.origo, level), mask, mcfg.top_left_offset,
+            mcfg.level_scale(level), cfg.level_max_ray_cells(level), shared)
+        new_lo = apply_update(lo, free_set & ~occ_set, occ_set,
+                              cfg.update.cell_model,
+                              cfg.update.log_odds_free,
+                              cfg.update.log_odds_occupied)
+        if not shared:
+            keep = gates.reshape(gates.shape + (1,) * (lo.dim() - 1))
+            new_lo = torch.where(keep, new_lo, lo)
         out.append(new_lo)
         truncated_total = truncated_total + truncated
     return tuple(out), truncated_total

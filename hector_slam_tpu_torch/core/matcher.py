@@ -77,16 +77,18 @@ def match_level(
     cell_length,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """ScanMatcher::matchData on one pyramid level; iterations+1 GN steps
-    (ScanMatcher.h:74,94)."""
+    (ScanMatcher.h:74,94). Poses f32[3] or f32[B, 3]; the scan is shared
+    (points [N, 2], mask [N]) or one per pose ([B, N, 2], [B, N]), and
+    ``quad`` is one grid [H*W, 4] or one per pose [B, H*W, 4]."""
     estimate = world_to_map_pose(begin_estimate_world, offset, scale)
-    hess = torch.zeros((3, 3), dtype=torch.float32, device=quad.device)
     for _ in range(iterations + 1):
         estimate, hess = gn_step(quad, shape, estimate, points, mask)
     world = finish_level(estimate, offset, cell_length)
-    # empty scan: the input pose verbatim (ScanMatcher.h:68,189)
-    any_valid = mask.any()
+    # empty scan: the input pose verbatim (ScanMatcher.h:68,189), per
+    # robot when each pose has its own scan
+    any_valid = mask.any(-1)[..., None]
     world = torch.where(any_valid, world, begin_estimate_world)
-    hess = torch.where(any_valid, hess, torch.zeros_like(hess))
+    hess = torch.where(any_valid[..., None], hess, torch.zeros_like(hess))
     return world, hess
 
 
@@ -114,7 +116,12 @@ def match_pyramid(
     """MapRepMultiMap::matchData (MapRepMultiMap.h:116-132): coarse->fine,
     pose chained in world coords; the returned H is the finest level's.
     ``quads``: optional per-level quad-packed prob grids
-    (SlamState.quads, the epoch cache)."""
+    (SlamState.quads, the epoch cache).
+
+    Batched forms: B hypotheses f32[B, 3] against one map and one scan,
+    or R robots f32[R, 3], each with its own scan (points [R, N, 2], mask
+    [R, N]) and, given per-robot pyramids ([R, H, W] levels, quads
+    [R, H*W, 4]), its own map."""
     mcfg = cfg.map
     pose = begin_estimate_world
     hess = None

@@ -8,10 +8,13 @@ skip it there:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance: the kernel is built with -fmad=false and takes the wrapper's
-sin/cos, so its per-query terms are the plain version's; only the f32
-summation order differs. Moments are held to 1e-5 of the batch's largest
-|moment| and the used counts exactly, as chip_smoke.py holds them."""
+Tolerances: the moments kernel is built with -fmad=false and takes the
+wrapper's sin/cos, so its per-query terms are the plain version's; only
+the f32 summation order differs. Moments are held to 1e-5 of the batch's
+largest |moment| and the used counts exactly, as chip_smoke.py holds
+them. The paint kernel stores bytes: its grids are held exactly equal to
+the plain version's, and a fleet on the card bit-equal to its robots run
+one by one through ``slam_step``."""
 
 import numpy as np
 import pytest
@@ -21,6 +24,7 @@ import hector_slam_tpu_torch as ht
 from hector_slam_tpu_torch.core.interp import quad_pack
 from hector_slam_tpu_torch.io.simulator import World, simulate_trajectory
 from hector_slam_tpu_torch.ops import interp_moments as im
+from hector_slam_tpu_torch.ops import paint_cells as pc
 
 TOL = 1e-5
 
@@ -122,3 +126,79 @@ def test_batched_match_through_kernel_on_card(cuda_device):
     assert np.isfinite(got.pose.cpu().numpy()).all()
     assert np.percentile(diff, 90) < 2e-3
     assert float(diag.slow_queries) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_cells,n", [(1024 * 1024, 65536), (4096, 1),
+                                         (64 * 256 * 256, 3_000_000)])
+def test_paint_matches_plain_on_card(cuda_device, num_cells, n):
+    """Random in-range indices, the sentinel num_cells, and duplicates:
+    the kernel's grid equals the plain version's exactly, and a second
+    launch is bit-identical."""
+    rng = np.random.default_rng(36)
+    flat = rng.integers(0, num_cells, n).astype(np.int32)
+    flat[rng.random(n) < 0.3] = num_cells
+    flat[: n // 4] = flat[n // 4: 2 * (n // 4)]
+    idx = torch.from_numpy(flat).to(cuda_device)
+    before = pc.paint_cells.launches
+    got = pc.paint_cells(idx, num_cells)
+    assert pc.paint_cells.launches == before + 1
+    assert got.dtype == torch.bool and got.shape == (num_cells,)
+    assert torch.equal(got, pc.paint_cells_plain(idx, num_cells))
+    assert torch.equal(got, pc.paint_cells(idx, num_cells))
+
+
+@pytest.mark.cuda
+def test_paint_drops_out_of_range_on_card(cuda_device):
+    """Indices outside [0, num_cells) are dropped, negative ones too (the
+    plain version drops them as well, where a bare index_put_ wraps)."""
+    idx = torch.tensor([3, 3, 0, 9, 10, 11, -1, -10, 2 ** 31 - 1],
+                       dtype=torch.int32, device=cuda_device)
+    got = pc.paint_cells(idx, 10).cpu().numpy()
+    want = np.zeros(10, bool)
+    want[[0, 3, 9]] = True
+    np.testing.assert_array_equal(got, want)
+    assert not pc.paint_cells(idx[:0], 10).any()
+    with pytest.raises(TypeError):
+        pc.paint_cells(idx.long(), 10)
+    with pytest.raises(ValueError):
+        pc.paint_cells(idx.reshape(3, 3).t(), 10)
+
+
+@pytest.mark.cuda
+def test_fleet_equals_single_robot_steps_on_card(cuda_device):
+    """Four robots on their own corridor trajectories through fleet_step
+    (one batched step, one paint per set and level) and each alone
+    through slam_step: poses, gates and maps bit-equal."""
+    cfg = ht.SlamConfig(map=ht.MapConfig(resolution=0.05, size_x=256,
+                                         size_y=256, levels=2),
+                        max_ray_cells=256)
+    laser = ht.LaserModel()
+    world = World.corridor(length=10.0, width=3.0)
+    r, steps = 4, 6
+    ranges = []
+    for i in range(r):
+        poses = np.zeros((steps, 3), np.float32)
+        poses[:, 0] = 0.6 * i + np.arange(steps) * (0.05 + 0.02 * i)
+        ranges.append(simulate_trajectory(world, poses, laser,
+                                          range_noise_std=0.005, seed=i))
+    ranges = np.stack(ranges, 1)
+
+    def scan(rg):
+        return ht.scan_from_ranges(rg, cfg.map.level_scale(0), laser,
+                                   cfg.max_beams, device=cuda_device)
+
+    fleet = ht.init_fleet(cfg, r, device=cuda_device)
+    solo = [ht.init_state(cfg, device=cuda_device) for _ in range(r)]
+    before = pc.paint_cells.launches
+    for t in range(steps):
+        fleet, m = ht.fleet_step(fleet, ht.stack_scans(
+            [scan(rg) for rg in ranges[t]]), cfg)
+        for i in range(r):
+            solo[i], sm = ht.slam_step(solo[i], scan(ranges[t, i]), cfg)
+            assert bool(sm.map_updated) == bool(m.map_updated[i])
+    assert pc.paint_cells.launches > before
+    for i in range(r):
+        assert torch.equal(fleet.pose[i], solo[i].pose)
+        for a, b in zip(fleet.log_odds, solo[i].log_odds):
+            assert torch.equal(a[i], b)

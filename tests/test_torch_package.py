@@ -55,7 +55,7 @@ def test_every_kernel_source_has_a_counted_wrapper():
     import importlib
     from hector_slam_tpu_torch.ops import cuda_build
     names = cuda_build.sources()
-    assert "interp_moments" in names
+    assert {"interp_moments", "paint_cells"} <= set(names)
     for name in names:
         mod = importlib.import_module(f"hector_slam_tpu_torch.ops.{name}")
         assert isinstance(getattr(mod, name).launches, int)
@@ -80,5 +80,20 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_card):
                             0, cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         ht.scan_from_numpy(np.zeros((8, 2)), np.zeros(2), np.ones(8, bool))
+    with pytest.raises(RuntimeError, match="cuda"):
+        ht.init_fleet(cfg, 3)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ht.init_shared_fleet(cfg, 3)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ht.fleet_state_from_numpy(
+            [np.zeros((3, 64, 64)), np.zeros((3, 32, 32))], np.zeros((3, 3)),
+            np.zeros((3, 3)), np.zeros((3, 3, 3)), np.zeros(3), np.zeros(3),
+            cfg)
     state = ht.init_state(cfg, device="cpu")
     assert all(t.device.type == "cpu" for t in state.log_odds + state.quads)
+    fleet = ht.init_fleet(cfg, 3, device="cpu")
+    assert fleet.log_odds[1].shape == (3, 32, 32)
+    assert fleet.quads[0].shape == (3, 64 * 64, 4)
+    assert all(t.is_contiguous() for t in fleet.log_odds + fleet.quads)
+    shared = ht.init_shared_fleet(cfg, 3, device="cpu")
+    assert shared.log_odds[0].shape == (64, 64) and shared.pose.shape == (3, 3)

@@ -4,8 +4,11 @@
 
 Builds the bench.py workload (a 1024^2 x 3-level map from 10 simulated
 scans with known poses) and traces, with torch.profiler, (1) one batched
-match of 4096 hypotheses through match_hypotheses_kernel and (2) 40
-sequential slam_step calls on the corridor fixture. For each it prints
+match of 4096 hypotheses through match_hypotheses_kernel, (2) 40
+sequential slam_step calls on the corridor fixture, (3) one gated
+fleet_step of 64 robots with a pyramid each (chip_smoke.py's fleet, first
+step) and (4) one gated shared_fleet_step of the 64 robots of
+tests/fixtures/shared_fleet_jax_reference.npz. For each it prints
 one JSON line: wall time under the profiler (which adds host overhead
 per op), summed kernel time, the device idle share (1 - kernel time /
 wall time), the kernel launches and the top kernels by device time.
@@ -86,6 +89,24 @@ def main() -> int:
         for r in fx_ranges[:40]])
     _profile(lambda: ht.run_log(ht.init_state(cfg), fx, cfg),
              "sequential_40_scans")
+
+    from chip_smoke import FLEET_ROBOTS, fleet_ranges
+    fleet_rg, _ = fleet_ranges()
+    fleet_scans = ht.stack_scans([ht.scan_from_ranges(
+        r, cfg.map.level_scale(0), laser, cfg.max_beams)
+        for r in fleet_rg[0]])
+    fleet = ht.init_fleet(cfg, FLEET_ROBOTS)
+    _profile(lambda: ht.fleet_step(fleet, fleet_scans, cfg),
+             f"fleet_step_{FLEET_ROBOTS}_gated")
+    ref = np.load(os.path.join(REPO, "tests", "fixtures",
+                               "shared_fleet_jax_reference.npz"))
+    shared_scans = ht.stack_scans([ht.scan_from_ranges(
+        r, cfg.map.level_scale(0), laser, cfg.max_beams)
+        for r in ref["ranges"][0]])
+    shared = ht.init_shared_fleet(cfg, int(ref["robots"]),
+                                  start_poses=ref["start_poses"])
+    _profile(lambda: ht.shared_fleet_step(shared, shared_scans, cfg),
+             f"shared_fleet_step_{int(ref['robots'])}_gated")
     return 0
 
 
