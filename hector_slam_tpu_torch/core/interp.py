@@ -131,18 +131,20 @@ class NormalEqs(NamedTuple):
 
 
 def beam_sum(terms: torch.Tensor) -> torch.Tensor:
-    """Sum over the last (beam) axis in a fixed pairwise order: zero-pad
-    to a power of two, then add halves. Every step is elementwise, so a
-    row's sum does not depend on the batch it sits in or on the device's
-    reduction kernel: a fleet's robot r sums exactly as a lone
-    ``slam_step`` does. (``torch.sum`` picks its order from the shape.)"""
-    n = terms.shape[-1]
-    width = 1 << max(n - 1, 0).bit_length()
-    if width != n:
-        terms = torch.nn.functional.pad(terms, (0, width - n))
+    """Sum over the last (beam) axis in a fixed pairwise order: add the
+    upper half of the columns onto the lower half until one is left; an
+    odd count first folds its last column into the first. Every step is
+    elementwise, so a row's sum does not depend on the batch it sits in or
+    on the device's reduction kernel: a fleet's robot r sums exactly as a
+    lone ``slam_step`` does. (``torch.sum`` picks its order from the
+    shape.)"""
     while terms.shape[-1] > 1:
-        half = terms.shape[-1] // 2
-        terms = terms[..., :half] + terms[..., half:]
+        n = terms.shape[-1]
+        half = n // 2
+        head = terms[..., :half] + terms[..., half:2 * half]
+        if n % 2:
+            head[..., :1] += terms[..., 2 * half:]
+        terms = head
     return terms[..., 0]
 
 
@@ -183,12 +185,14 @@ def normal_eqs_quad(
     rot = (-sin_rot * px - cos_rot * py) * gx + \
         (cos_rot * px - sin_rot * py) * gy
     rot = torch.where(mask, rot, zero)
-    s = beam_sum(torch.stack([gx * gx, gx * gy, gx * rot, gy * gy,
-                              gy * rot, rot * rot, gx * fun, gy * fun,
-                              rot * fun], dim=-2)).unbind(-1)
+    # (gx, gy, rot) times (gx, gy, rot, fun) in one [3, 4, ..., N] product:
+    # J^T J and J^T (1-M) side by side (the lower triangle repeats the
+    # upper one bit for bit)
+    f = torch.stack([gx, gy, rot, fun])
+    s = beam_sum(f[:3, None] * f[None])                    # [3, 4, ...]
     used = (in_bounds & mask).sum(dim=-1).to(torch.float32)
-    return NormalEqs(assemble_hessian(s[0], s[1], s[2], s[3], s[4], s[5]),
-                     torch.stack(s[6:9], dim=-1), used)
+    return NormalEqs(s[:, :3].movedim((0, 1), (-2, -1)),
+                     s[:, 3].movedim(0, -1), used)
 
 
 def assemble_hessian(xx, xy, xt, yy, yt, tt) -> torch.Tensor:

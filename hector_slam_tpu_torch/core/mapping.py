@@ -12,15 +12,16 @@ every free cell is a dense [N, K] integer computation. Each cell set is
 one ``paint_cells`` call (the CUDA kernel ``csrc/paint_cells.cu`` on the
 card).
 
-The rasterizer broadcasts over leading axes: a fleet's R scans
-(``rasterize_fleet``) cost one paint per set and level, either into one
-[R*H*W] grid (per-robot maps, each robot's cells offset by r*H*W) or into
-one [H*W] grid (a shared map: painting every gated robot's cells into one
-grid IS the OR over robots).
+The rasterizer broadcasts over leading axes, so a fleet's R scans cost
+one paint per set and level, like one scan: into one [H*W] grid (a shared
+map: painting every gated robot's cells into one grid IS the OR over
+robots), or, for per-robot maps, into one [R*H*W] grid with robot r's
+cells offset by r*H*W.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Sequence, Tuple
 
 import torch
@@ -28,11 +29,9 @@ import torch
 from ..config import SlamConfig
 from ..ops.paint_cells import paint_cells
 from ..types import Scan
-from .cell_models import apply_update
+from .cell_models import apply_update, storage_channels
 from .grid import world_to_map_pose
 from .matcher import level_points
-
-_SEG = 64   # cells per compacted beam segment (rasterize_scan_seg)
 
 
 def _sign_ref(x: torch.Tensor) -> torch.Tensor:
@@ -45,22 +44,22 @@ class _RayParams(NamedTuple):
     """Flat-offset Bresenham parameters of one scan's beams ([N]) or of R
     scans' beams ([R, N])."""
 
-    ex: torch.Tensor            # i32[..., N] end cell x
-    ey: torch.Tensor            # i32[..., N] end cell y
     valid: torch.Tensor         # bool[..., N]
     abs_da: torch.Tensor        # i32[..., N] dominant-axis span
     abs_db: torch.Tensor        # i32[..., N] minor-axis span
     offset_a: torch.Tensor      # i32[..., N] flat step per dominant cell
     offset_b: torch.Tensor      # i32[..., N] flat step on minor advance
     start_offset: torch.Tensor  # i32[..., 1] the scan's sensor-origin cell
+    end_offset: torch.Tensor    # i32[..., N] each beam's end cell
 
 
 def _bresenham_params(grid_shape, pose_world, scan_points, scan_origo,
-                      scan_mask, offset, scale) -> _RayParams:
+                      scan_mask, offset, scale, base=None) -> _RayParams:
     """Beam start/end cells, validity and Bresenham parameters with the
     reference's rounding and validity rules (OccGridMapBase.h:134-158,
     176,186). Poses f32[..., 3], points f32[..., N, 2], origo f32[..., 2],
-    mask bool[..., N]."""
+    mask bool[..., N]. ``base`` i32[..., 1], when given, is added to every
+    flat cell index (robot r's grid starts at r*H*W)."""
     h, w = grid_shape
     pose_map = world_to_map_pose(pose_world, offset, scale)
     s = torch.sin(pose_map[..., 2:3])
@@ -97,41 +96,28 @@ def _bresenham_params(grid_shape, pose_world, scan_points, scan_origo,
     x_dom = abs_dx >= abs_dy
     offset_dx = _sign_ref(dx)
     offset_dy = _sign_ref(dy) * w
+    start_offset = by * w + bx
+    end_offset = ey * w + ex
+    if base is not None:
+        start_offset = start_offset + base
+        end_offset = end_offset + base
     return _RayParams(
-        ex=ex, ey=ey, valid=valid,
+        valid=valid,
         abs_da=torch.where(x_dom, abs_dx, abs_dy),
         abs_db=torch.where(x_dom, abs_dy, abs_dx),
         offset_a=torch.where(x_dom, offset_dx, offset_dy),
         offset_b=torch.where(x_dom, offset_dy, offset_dx),
-        start_offset=by * w + bx,
+        start_offset=start_offset,
+        end_offset=end_offset,
     )
 
 
 def _scatter_true(flat: torch.Tensor, grid_shape) -> torch.Tensor:
     """Commutative scatter-OR of every index (whatever the leading axes)
-    into one bool[H, W]; the sentinel index (== num cells) drops."""
-    h, w = grid_shape
-    return paint_cells(flat.reshape(-1), h * w).reshape(h, w)
-
-
-def _per_robot_indices(flat: torch.Tensor, grid_shape):
-    """Robot r's indices (``flat[r]``) offset by r*H*W into one grid of
-    R*H*W cells, every sentinel moved to that grid's own sentinel R*H*W.
-    Returns (indices i32, R*H*W)."""
-    n = grid_shape[0] * grid_shape[1]
-    r = flat.shape[0]
-    base = (torch.arange(r, dtype=torch.int32, device=flat.device) * n
-            ).reshape((r,) + (1,) * (flat.dim() - 1))
-    sentinel = torch.full((), r * n, dtype=torch.int32, device=flat.device)
-    return torch.where(flat < n, flat + base, sentinel), r * n
-
-
-def _scatter_true_per_robot(flat: torch.Tensor, grid_shape) -> torch.Tensor:
-    """Scatter-OR of robot r's indices into grid r of one bool[R, H, W]
-    paint."""
-    idx, num_cells = _per_robot_indices(flat, grid_shape)
-    return paint_cells(idx.reshape(-1), num_cells).reshape(
-        (flat.shape[0],) + tuple(grid_shape))
+    into one bool grid of ``grid_shape``, (H, W) or, for per-robot indices
+    offset by r*H*W, (R, H, W); the sentinel index (== num cells) drops."""
+    return paint_cells(flat.reshape(-1),
+                       math.prod(grid_shape)).reshape(grid_shape)
 
 
 def _dense_free_flat(p: _RayParams, num_cells: int,
@@ -151,12 +137,6 @@ def _dense_free_flat(p: _RayParams, num_cells: int,
     return torch.where(free_mask, free_flat, sentinel)
 
 
-def _occ_flat(p: _RayParams, grid_shape) -> torch.Tensor:
-    sentinel = torch.full((), grid_shape[0] * grid_shape[1],
-                          dtype=torch.int32, device=p.ex.device)
-    return torch.where(p.valid, p.ey * grid_shape[1] + p.ex, sentinel)
-
-
 def _truncated_count(p: _RayParams, max_ray_cells: int) -> torch.Tensor:
     # cells dropped by the static cap (the reference marks them all)
     over = torch.clamp(p.abs_da - max_ray_cells, min=0)
@@ -164,40 +144,42 @@ def _truncated_count(p: _RayParams, max_ray_cells: int) -> torch.Tensor:
         torch.int32)
 
 
-def rasterize_scan(
+def cell_indices(
     grid_shape: Tuple[int, int],
-    pose_world: torch.Tensor,
-    scan_points: torch.Tensor,   # f32[N,2] this level's scaled points
-    scan_origo: torch.Tensor,    # f32[2]
-    scan_mask: torch.Tensor,     # bool[N]
+    pose_world: torch.Tensor,    # f32[3] or f32[R, 3]
+    scan_points: torch.Tensor,   # f32[(R,) N, 2] this level's scaled points
+    scan_origo: torch.Tensor,    # f32[(R,) 2]
+    scan_mask: torch.Tensor,     # bool[(R,) N]
     offset,
     scale,
     max_ray_cells: int,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per-scan free/occupied boolean grids for one level.
+    per_robot: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, int, torch.Tensor]:
+    """The flat cell indices one update paints, for one scan or R scans:
+    (free i32[(R,) N, K], occupied i32[(R,) N], num_cells, truncated
+    i32[(R,)]). Masked slots and invalid beams hold the sentinel
+    ``num_cells``.
 
-    Returns (free_set bool[H,W], occ_set bool[H,W], truncated_cells i32[]):
-    ``truncated_cells`` counts free cells dropped because a beam's
-    dominant-axis span exceeded ``max_ray_cells`` (nonzero means a
-    divergence from the reference)."""
-    p = _bresenham_params(grid_shape, pose_world, scan_points,
-                          scan_origo, scan_mask, offset, scale)
+    By default every scan indexes one [H*W] grid (one scan, or a shared
+    map). ``per_robot``: scan r indexes grid r of one [R*H*W] grid, its
+    cells offset by r*H*W through the beams' start and end offsets."""
     num_cells = grid_shape[0] * grid_shape[1]
-    return (_scatter_true(_dense_free_flat(p, num_cells, max_ray_cells),
-                          grid_shape),
-            _scatter_true(_occ_flat(p, grid_shape), grid_shape),
+    base = None
+    if per_robot:
+        r = pose_world.shape[0]
+        base = (torch.arange(r, dtype=torch.int32, device=pose_world.device)
+                * num_cells)[:, None]
+        num_cells *= r
+    p = _bresenham_params(grid_shape, pose_world, scan_points, scan_origo,
+                          scan_mask, offset, scale, base)
+    sentinel = torch.full((), num_cells, dtype=torch.int32,
+                          device=p.valid.device)
+    return (_dense_free_flat(p, num_cells, max_ray_cells),
+            torch.where(p.valid, p.end_offset, sentinel), num_cells,
             _truncated_count(p, max_ray_cells))
 
 
-def default_segment_budget(n_beams: int, max_ray_cells: int) -> int:
-    """The JAX package's default segment budget: a sixth of the dense slot
-    count, floored at 1.25x the beam count (hector_slam_tpu/core/
-    mapping.py:222-237)."""
-    k_seg = -(-max_ray_cells // _SEG)
-    return max(8, n_beams + (n_beams >> 2), (n_beams * k_seg) // 6)
-
-
-def rasterize_scan_seg(
+def rasterize_scan(
     grid_shape: Tuple[int, int],
     pose_world: torch.Tensor,
     scan_points: torch.Tensor,
@@ -206,82 +188,21 @@ def rasterize_scan_seg(
     offset,
     scale,
     max_ray_cells: int,
-    budget_segments: int = 0,
+    per_robot: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``rasterize_scan`` with segment compaction (hector_slam_tpu/core/
-    mapping.py:194-275): the valid 64-cell beam segments are compacted
-    with cumsum + ``torch.searchsorted`` into ``budget_segments`` slots
-    (default ``default_segment_budget``), so the paint reads ~valid cells
-    instead of the dense worst case.
+    """Per-scan free/occupied boolean grids for one level (shapes as in
+    ``cell_indices``).
 
-    Cell sets are bit-identical to ``rasterize_scan``. If the scan needs
-    more segments than the budget, the free set comes from the dense path
-    instead: a host branch on the segment total, the one device->host
-    sync this function adds."""
-    num_cells = grid_shape[0] * grid_shape[1]
-    n_beams = scan_points.shape[0]
-    k_seg = -(-max_ray_cells // _SEG)
-    if budget_segments <= 0:
-        budget_segments = default_segment_budget(n_beams, max_ray_cells)
-
-    p = _bresenham_params(grid_shape, pose_world, scan_points,
-                          scan_origo, scan_mask, offset, scale)
-    dev = p.abs_da.device
-    length = torch.clamp(p.abs_da, max=max_ray_cells)   # painted cells/beam
-
-    # valid segments per beam: ceil(length/SEG); compact (beam, seg) ids
-    n_seg = torch.where(p.valid, (length + (_SEG - 1)) // _SEG,
-                        torch.zeros_like(length))                 # [N]
-    seg_valid = (torch.arange(k_seg, dtype=torch.int32, device=dev)[None, :]
-                 < n_seg[:, None])                                # [N, Ks]
-    pos = torch.cumsum(seg_valid.reshape(-1), 0)                  # i64
-    total = int(pos[-1])                         # the one host sync
-    if total > budget_segments:
-        free_flat = _dense_free_flat(p, num_cells, max_ray_cells)
-    else:
-        slots = torch.arange(budget_segments, dtype=torch.int64, device=dev)
-        flat_ids = torch.clamp(torch.searchsorted(pos, slots + 1),
-                               max=n_beams * k_seg - 1)
-        b_i = flat_ids // k_seg
-        s_i = (flat_ids % k_seg).to(torch.int32)
-        j = (s_i[:, None] * _SEG
-             + torch.arange(_SEG, dtype=torch.int32, device=dev)[None, :])
-        abs_da_safe = torch.clamp(p.abs_da, min=1)
-        minor = ((p.abs_da // 2)[b_i][:, None]
-                 + j * p.abs_db[b_i][:, None]) // abs_da_safe[b_i][:, None]
-        flat = (p.start_offset + j * p.offset_a[b_i][:, None]
-                + minor * p.offset_b[b_i][:, None])
-        keep = (slots < total)[:, None] & (j < length[b_i][:, None])
-        sentinel = torch.full((), num_cells, dtype=torch.int32, device=dev)
-        free_flat = torch.where(keep, flat, sentinel)
-    return (_scatter_true(free_flat, grid_shape),
-            _scatter_true(_occ_flat(p, grid_shape), grid_shape),
-            _truncated_count(p, max_ray_cells))
-
-
-def rasterize_fleet(
-    grid_shape: Tuple[int, int],
-    poses_world: torch.Tensor,   # f32[R, 3]
-    scan_points: torch.Tensor,   # f32[R, N, 2] this level's scaled points
-    scan_origo: torch.Tensor,    # f32[R, 2]
-    scan_mask: torch.Tensor,     # bool[R, N]
-    offset,
-    scale,
-    max_ray_cells: int,
-    shared: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """R scans' free/occupied sets for one level, with the dense free set
-    and one paint per set. ``shared=False``: per-robot sets bool[R, H, W]
-    (robot r's scan into grid r); ``shared=True``: the OR over robots,
-    bool[H, W]. Robots whose mask is all False contribute nothing.
-    Returns (free, occ, truncated_cells i32[R])."""
-    p = _bresenham_params(grid_shape, poses_world, scan_points, scan_origo,
-                          scan_mask, offset, scale)
-    paint = _scatter_true if shared else _scatter_true_per_robot
-    num_cells = grid_shape[0] * grid_shape[1]
-    return (paint(_dense_free_flat(p, num_cells, max_ray_cells), grid_shape),
-            paint(_occ_flat(p, grid_shape), grid_shape),
-            _truncated_count(p, max_ray_cells))
+    Returns (free_set, occ_set, truncated_cells): bool[H, W] sets (the OR
+    over scans when R scans are given), or bool[R, H, W] with
+    ``per_robot``. ``truncated_cells`` counts free cells dropped because a
+    beam's dominant-axis span exceeded ``max_ray_cells`` (nonzero means a
+    divergence from the reference)."""
+    free, occ, _, truncated = cell_indices(
+        grid_shape, pose_world, scan_points, scan_origo, scan_mask, offset,
+        scale, max_ray_cells, per_robot)
+    shape = ((pose_world.shape[0],) if per_robot else ()) + tuple(grid_shape)
+    return _scatter_true(free, shape), _scatter_true(occ, shape), truncated
 
 
 def update_level(
@@ -296,26 +217,19 @@ def update_level(
     log_odds_free: float,
     log_odds_occupied: float,
     cell_model: str = "log_odds",
-    raster_backend: str | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One scan's update of one level. Returns (new storage, truncated
-    cells i32[]).
+    """One update of one level. Returns (new storage, truncated cells
+    i32[(R,)]).
 
-    ``raster_backend``: "dense" (the dense-slot free set; the JAX "xla"
-    backend) or "seg" (``rasterize_scan_seg``); None means "dense", since
-    the card's paint costs per valid cell, not per slot. Both give
-    bit-identical cell sets."""
-    backend = "dense" if raster_backend is None else raster_backend
-    if backend == "seg":
-        raster = rasterize_scan_seg
-    elif backend == "dense":
-        raster = rasterize_scan
-    else:
-        raise ValueError(f"unknown raster_backend {raster_backend!r} "
-                         "(expected 'dense' or 'seg')")
-    free_set, occ_set, truncated = raster(
+    One scan (pose f32[3]) or R scans (poses f32[R, 3]). A storage with a
+    leading robot axis beyond the cell model's own ([R, H, W], or
+    [R, 2, H, W] for reflectance) is R maps, scan r updating map r; else
+    the R scans update the one map together. A robot whose mask is all
+    False leaves its cells as they were."""
+    per_robot = log_odds.dim() > 1 + storage_channels(cell_model)
+    free_set, occ_set, truncated = rasterize_scan(
         tuple(log_odds.shape[-2:]), pose_world, scan_points, scan_origo,
-        scan_mask, offset, scale, max_ray_cells)
+        scan_mask, offset, scale, max_ray_cells, per_robot)
     new = apply_update(log_odds, free_set & ~occ_set, occ_set, cell_model,
                        log_odds_free, log_odds_occupied)
     return new, truncated
@@ -326,66 +240,33 @@ def update_pyramid(
     pose_world: torch.Tensor,
     scan: Scan,
     cfg: SlamConfig,
-    raster_backend: str | None = None,
+    gates: torch.Tensor | None = None,
 ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
     """MapRepMultiMap::updateByScan (MapRepMultiMap.h:134-147): every level
     updated independently with its 2^-level-scaled scan. Returns (new
-    pyramid, truncated cells i32[] summed over levels)."""
+    pyramid, truncated cells i32[(R,)] summed over levels).
+
+    A fleet passes R poses and scans (points [R, N, 2]) and ``gates``
+    bool[R], the robots whose scans integrate; the others' beams are
+    masked, so they add no cell and count no truncation. Per-robot
+    pyramids (a leading R axis on every level) take scan r into map r; a
+    shared pyramid takes the union of the gated robots' cell sets in one
+    update (occupied wins across robots as across beams,
+    hector_slam_tpu/parallel/shared_map.py:6-15). Either way each level
+    costs one paint per cell set."""
     mcfg = cfg.map
+    mask = scan.mask if gates is None else scan.mask & gates[:, None]
     out = []
-    truncated_total = torch.zeros((), dtype=torch.int32,
+    truncated_total = torch.zeros(pose_world.shape[:-1], dtype=torch.int32,
                                   device=scan.points.device)
     for level, lo in enumerate(log_odds_pyramid):
         new_lo, truncated = update_level(
             lo, pose_world, level_points(scan.points, level),
-            level_points(scan.origo, level), scan.mask,
+            level_points(scan.origo, level), mask,
             mcfg.top_left_offset, mcfg.level_scale(level),
             cfg.level_max_ray_cells(level),
             cfg.update.log_odds_free, cfg.update.log_odds_occupied,
-            cfg.update.cell_model, raster_backend)
-        out.append(new_lo)
-        truncated_total = truncated_total + truncated
-    return tuple(out), truncated_total
-
-
-def update_fleet_pyramid(
-    log_odds_pyramid: Sequence[torch.Tensor],
-    poses_world: torch.Tensor,   # f32[R, 3]
-    scans: Scan,                 # points [R, N, 2], origo [R, 2], mask [R, N]
-    gates: torch.Tensor,         # bool[R] robots whose scan integrates
-    cfg: SlamConfig,
-    shared: bool = False,
-) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
-    """One map update of a whole fleet, level by level: non-gated robots'
-    beams are masked (their cells go to the sentinel), and each level costs
-    one paint per cell set for all R robots.
-
-    ``shared=False``: per-robot pyramids (a leading R axis on every level);
-    non-gated robots keep their maps through ``torch.where``.
-    ``shared=True``: one pyramid, updated once with the union of the gated
-    robots' cell sets (occupied wins across robots as across beams,
-    hector_slam_tpu/parallel/shared_map.py:6-15).
-
-    Returns (new pyramid, truncated cells i32[R] summed over levels; 0 for
-    non-gated robots)."""
-    mcfg = cfg.map
-    mask = scans.mask & gates[:, None]
-    out = []
-    truncated_total = torch.zeros(gates.shape, dtype=torch.int32,
-                                  device=gates.device)
-    for level, lo in enumerate(log_odds_pyramid):
-        free_set, occ_set, truncated = rasterize_fleet(
-            tuple(lo.shape[-2:]), poses_world,
-            level_points(scans.points, level),
-            level_points(scans.origo, level), mask, mcfg.top_left_offset,
-            mcfg.level_scale(level), cfg.level_max_ray_cells(level), shared)
-        new_lo = apply_update(lo, free_set & ~occ_set, occ_set,
-                              cfg.update.cell_model,
-                              cfg.update.log_odds_free,
-                              cfg.update.log_odds_occupied)
-        if not shared:
-            keep = gates.reshape(gates.shape + (1,) * (lo.dim() - 1))
-            new_lo = torch.where(keep, new_lo, lo)
+            cfg.update.cell_model)
         out.append(new_lo)
         truncated_total = truncated_total + truncated
     return tuple(out), truncated_total

@@ -64,14 +64,11 @@ def slam_step(
     cfg: SlamConfig,
     pose_hint: Optional[torch.Tensor] = None,
     map_without_matching: bool = False,
-    raster_backend: Optional[str] = None,
 ) -> Tuple[SlamState, StepMetrics]:
     """One scan update (HectorSlamProcessor::update, :71-113).
 
     ``pose_hint`` defaults to the last scan-match pose (the node's default
-    start estimate, HectorMappingRos.cpp:313-315). ``raster_backend``
-    picks the map update's free-set rasterizer ("dense" or "seg", see
-    core/mapping.update_level; None = "dense"); both give the same map."""
+    start estimate, HectorMappingRos.cpp:313-315)."""
     hint = state.pose if pose_hint is None else pose_hint
     if map_without_matching:
         new_pose = hint
@@ -88,7 +85,7 @@ def slam_step(
 
     if bool(do_update):   # the one host sync per scan
         new_log_odds, truncated = update_pyramid(state.log_odds, new_pose,
-                                                 scan, cfg, raster_backend)
+                                                 scan, cfg)
         new_last_update_pose = new_pose
         # refresh the cached quads only when the map changed (the
         # reference's epoch-cache invalidation, MapRepMultiMap.h:107-114)

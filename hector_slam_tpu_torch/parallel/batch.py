@@ -11,10 +11,10 @@ become leading tensor axes here (BASELINE.json configs 4-5):
 ``fleet_step`` runs the whole fleet as one batched step: per-robot GN
 matching (each robot gathers from its own quads through an int64 offset),
 per-robot gates, and one map update for all gated robots (one paint per
-cell set and level, core/mapping.update_fleet_pyramid). The JAX vmap turns
-the gate's ``lax.cond`` into a select; here non-gated robots' beams go to
-the sentinel and ``torch.where`` keeps their maps, and the one host sync
-per step skips the update when no robot gated.
+cell set and level, core/mapping.update_pyramid). The JAX vmap turns the
+gate's ``lax.cond`` into a select; here non-gated robots' beams go to the
+sentinel, so their maps come out unchanged, and the one host sync per step
+skips the update when no robot gated.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import torch
 from ..config import SlamConfig
 from ..core.grid import pose_difference_larger_than, world_to_map_pose
 from ..core.interp import beam_sum, interp_quad, quad_pack_storage
-from ..core.mapping import update_fleet_pyramid
+from ..core.mapping import update_pyramid
 from ..core.matcher import level_points, match_pyramid
 from ..core.slam import init_state, quads_of
 from ..ops.solve3 import det3
@@ -104,8 +104,8 @@ def fleet_step(
         new_pose, states.last_map_update_pose,
         cfg.map_update_distance_thresh, cfg.map_update_angle_thresh)
     if bool(gates.any()):   # the one host sync per step
-        new_log_odds, truncated = update_fleet_pyramid(
-            states.log_odds, new_pose, scans, gates, cfg)
+        new_log_odds, truncated = update_pyramid(
+            states.log_odds, new_pose, scans, cfg, gates)
         # non-gated robots' maps are unchanged, so their quads come out
         # as they were
         new_quads = quads_of(new_log_odds, cfg.update.cell_model)

@@ -12,7 +12,7 @@ of the gated robots' scans.
 
 Here the OR costs nothing extra: every gated robot's indices go into one
 [H*W] paint per cell set and level, and painting them into one grid IS
-the union (core/mapping.rasterize_fleet with ``shared=True``).
+the union (core/mapping.update_pyramid on a pyramid with no robot axis).
 
 Each robot keeps its own pose, covariance and gate reference; robots
 whose gate has not fired contribute nothing (their beams are masked).
@@ -30,7 +30,7 @@ import torch
 
 from ..config import SlamConfig
 from ..core.grid import pose_difference_larger_than
-from ..core.mapping import update_fleet_pyramid
+from ..core.mapping import update_pyramid
 from ..core.matcher import match_pyramid
 from ..core.slam import init_state, quads_of
 from ..ops.solve3 import det3
@@ -90,8 +90,8 @@ def shared_fleet_step(
 
     any_gate = bool(gates.any())   # the one host sync per step
     if any_gate:
-        new_log_odds, truncated = update_fleet_pyramid(
-            state.log_odds, new_poses, scans, gates, cfg, shared=True)
+        new_log_odds, truncated = update_pyramid(
+            state.log_odds, new_poses, scans, cfg, gates)
         truncated_total = truncated.sum().to(torch.int32)
         new_quads = quads_of(new_log_odds, cfg.update.cell_model)
     else:

@@ -1,7 +1,7 @@
 """Package boundaries of the PyTorch port: no module of
 hector_slam_tpu_torch/, nor any script or test that runs on the card
-(chip_smoke.py, tools/profile_torch_port.py, tests/test_torch_cuda.py),
-imports JAX or the JAX package, and the entry points put their tensors on the card unless the
+(chip_smoke.py, tools/profile_torch_port.py, tools/ab_torch_rates.py,
+tests/test_torch_cuda.py), imports JAX or the JAX package, and the entry points put their tensors on the card unless the
 caller asks for the CPU — raising, never falling back, when no card is
 present."""
 
@@ -27,6 +27,7 @@ def _port_files():
     # what runs on the card's machine, which has no JAX
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "tools", "profile_torch_port.py")
+    yield os.path.join(REPO, "tools", "ab_torch_rates.py")
     yield os.path.join(REPO, "tests", "test_torch_cuda.py")
 
 

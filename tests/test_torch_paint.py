@@ -126,13 +126,12 @@ def test_map_update_indices_are_never_negative():
         pose = torch.from_numpy(np.asarray(poses[t], np.float32))
         for level in range(cfg.map.levels):
             sx, sy = cfg.map.level_size(level)
-            p = tmap._bresenham_params(
+            free, occ, n, _ = tmap.cell_indices(
                 (sy, sx), pose, scan.points * (1.0 / 2 ** level),
-                scan.origo, scan.mask, cfg.map.top_left_offset,
-                cfg.map.level_scale(level))
-            free = tmap._dense_free_flat(p, sx * sy,
-                                         cfg.level_max_ray_cells(level))
-            occ = tmap._occ_flat(p, (sy, sx))
+                scan.origo * (1.0 / 2 ** level), scan.mask,
+                cfg.map.top_left_offset, cfg.map.level_scale(level),
+                cfg.level_max_ray_cells(level))
+            assert n == sx * sy
             for idx in (free, occ):
                 assert int(idx.min()) >= 0 and int(idx.max()) <= sx * sy
             assert int((free < sx * sy).sum()) > 1000

@@ -7,8 +7,12 @@ by tools/make_torch_fleet_reference.py).
 The robots scan with the full 1081-beam laser: with many beams the GN
 iterates are well conditioned, so the packages' f32 summation orders move
 poses by ~1e-6 m and no map cell flips. Held: gates and update counts
-exactly, pose RMSE against JAX < 5 mm (chip_smoke.py's budget; measured
-~1e-6 m), and each level's counts of cells > 0 and < 0 equal."""
+exactly, pose RMSE against JAX < 1e-4 m, and each level's counts of cells
+> 0 and < 0 equal. The pose limit sits between the readings here (1.7e-6
+m for the room fleet, 1.3e-7 m for the fresh small reference) and a
+control with one GN step fewer on the finest level (1.6e-2 m on the fresh
+small reference, its gates still equal); chip_smoke.py holds the card to
+the same limit."""
 
 import os
 
@@ -30,7 +34,7 @@ from tools import make_torch_fleet_reference as mfr
 MAP_KW = dict(resolution=0.05, size_x=256, size_y=256, levels=2)
 JCFG = hs.SlamConfig(map=hs.MapConfig(**MAP_KW), max_ray_cells=256)
 TCFG = ht.SlamConfig(map=ht.MapConfig(**MAP_KW), max_ray_cells=256)
-RMSE_BUDGET_M = 0.005
+RMSE_BUDGET_M = 1e-4
 
 
 @pytest.fixture(scope="module", autouse=True)

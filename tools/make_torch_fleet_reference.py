@@ -14,7 +14,7 @@ i32[T], the update count, and each level's counts of cells with log-odds
 > 0 and < 0 after the last step.
 
     JAX_PLATFORMS=cpu python tools/make_torch_fleet_reference.py \\
-        [--robots 64] [--steps 8] [--seed 0]
+        [--robots 64] [--steps 16] [--seed 0]
 
 ``chip_smoke.py`` replays the stored ranges through the port's
 ``shared_fleet_step`` and compares; tests/test_torch_fleet.py holds the
@@ -34,7 +34,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REFERENCE = os.path.join(REPO, "tests", "fixtures",
                          "shared_fleet_jax_reference.npz")
 DEFAULT_ROBOTS = 64
-DEFAULT_STEPS = 8
+DEFAULT_STEPS = 16   # the robots stay 0.2 m clear of the room's boxes
 DEFAULT_SEED = 0
 CONFIG_NAME = "BENCH_CONFIG"
 ROOM_SIZE = 10.0
