@@ -38,11 +38,28 @@ the main path through the entry points a user calls:
      paths above give it: grids exactly equal to the plain version's, two
      launches bit-identical, and its time beside the plain version's, one
      index_put_ and the bytes bound;
-  9. the kernels line: per kernel, its launches on the main path (each
-     path is driven with the counts set to 0 just before it and read
-     just after), its largest error against the plain version, its time,
-     the plain version's and the library call's time, and the bound
-     computed from this run's inputs.
+  9. probes — the cost probes of tools/probe_pallas.py and
+     tools/probe_mosaic_store.py at their own shapes, driven through
+     hector_slam_tpu_torch.probes (take_along over 64 [8,128] tiles on both
+     axes and on the four one-tile operands, matmul_stationary
+     [8192,128]x[128,128] bf16, dyn_slice in its three modes on 1024^2,
+     1024^2 painted per cell and per run): launch counts equal to the
+     calls the probes issued; then each workload at its low rep count,
+     kernel vs plain: exactly equal (take_along, dyn_slice, paint_runs,
+     paint_cells) or within MM_ULPS bf16 ulps (matmul_stationary), two
+     launches bit-identical; the plain version's time at the low rep
+     count, the library calls' (replayed from one CUDA graph) and the
+     bound at the high one;
+ 10. the kernels line: per kernel, its launches on the main path (each
+     path, the probes included, is driven with the counts set to 0 just
+     before it and read just after), its largest error against the plain
+     version, its time, the plain version's and the library call's time,
+     and the bound computed from this run's inputs.
+Kernel, plain-version and library times are device times: the calls are
+queued behind a device sleep (probes.time_ms), and ``host_in`` names any
+time that still includes the host's (the function synchronises, or its
+launches outran the queue). Only the end-to-end rates and the moments
+wrapper's time are taken with the host feeding the device.
 Each phase prints one JSON line; any failure exits non-zero. The last
 line is {"ok": true, "device": {...}}. Without a card, or without the
 rest of the repository beside it, it prints no result and exits 2.
@@ -66,9 +83,13 @@ SHARED_RMSE_M = 1e-4    # port vs JAX pose RMSE, shared fleet (see its tests)
 FLEET_ROBOTS = 64       # BASELINE config 5: 64 parallel trajectories
 FLEET_STEPS = 25        # one untimed warm-up step, then 24 timed
 FLEET_CHECKED = (0, 21, 42, 63)   # replayed alone through slam_step
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 non-tensor FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 non-tensor FLOP/s
+# and dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
+OPS_PER_S = {"f32": F32_OPS_PER_S, "bf16": BF16_TENSOR_OPS_PER_S}
+MM_ULPS = 2   # matmul_stationary vs plain, bf16 ulps (tests/test_torch_cuda.py)
 # f32 operations per in-bounds valid query of interp_moments: transform 8,
 # fractions 4, bilinear value 9, quirk gradients 10, residual 1, rotation
 # derivative 9, nine moment products and their sums 18
@@ -92,8 +113,9 @@ def read_counts(kernels) -> dict:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events,
-    after one warm-up call."""
+    """Mean time of ``fn`` over ``reps`` calls, by CUDA events, after one
+    warm-up call, with the host feeding the device: the time a caller
+    sees, host launches included."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -103,6 +125,20 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_times(**timed) -> dict:
+    """``{name: (fn, calls)}`` -> ``{name: ms}`` by ``probes.time_ms`` (the
+    calls queued behind a device sleep), plus ``host_in``: the names
+    whose time still includes the host's (``fn`` synchronises, or its
+    launches outran the queue)."""
+    from hector_slam_tpu_torch.probes import time_ms
+    out, host_in = {}, []
+    for name, (fn, calls) in timed.items():
+        out[name], device_only = time_ms(fn, calls)
+        if not device_only:
+            host_in.append(name)
+    return dict(out, host_in=host_in)
 
 
 def run_steps(step, state, scans):
@@ -331,12 +367,14 @@ def phase_batched(dev, kernels):
             level=lvl, shape=list(shape),
             gn_steps=(cfg.match.iterations_finest if lvl == 0
                       else cfg.match.iterations_coarse) + 1,
-            # the bare launch (device time), and the wrapper with its
-            # checks, sin/cos, allocation and assembly (host-bound)
-            kernel_ms=cuda_ms(lambda: _launch(
-                *args[:3], *bufs[:2], *args[3:], bufs[2]), 50),
+            # the bare launch and the plain version (device times), and
+            # the wrapper with its checks, sin/cos, allocation and
+            # assembly as a caller sees it (host-bound)
+            **device_times(
+                kernel_ms=(lambda: _launch(
+                    *args[:3], *bufs[:2], *args[3:], bufs[2]), 50),
+                plain_ms=(lambda: interp_moments_plain(*args), 5)),
             wrapper_ms=cuda_ms(lambda: interp_moments(*args), 20),
-            plain_ms=cuda_ms(lambda: interp_moments_plain(*args), 5),
             bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
             bound_ms=max(t_bytes, t_ops), max_rel_err=rel,
             max_abs_err=abs_, used_equal=bool(torch.equal(k.used, p.used))))
@@ -560,20 +598,21 @@ def phase_paint(dev, inputs):
             set=name, path=path, indices=flat.numel(), num_cells=n,
             painted=int(plain.sum()), mismatched_cells=bad,
             repeat_bit_identical=bool(torch.equal(k1, k2)),
-            # the function's device work (zeroed grid + kernel), the bare
-            # launch into a zeroed grid, the zero fill alone, the plain
-            # version, and one index_put_ into a zeroed grid with a
+            # device times of the function (zeroed grid + kernel), the
+            # bare launch into a zeroed grid, the zero fill alone, the
+            # plain version, and one index_put_ into a zeroed grid with a
             # sentinel slot
-            ms=cuda_ms(lambda: paint_cells(flat, n), 20),
-            launch_ms=cuda_ms(lambda: _launch(flat, grid), 20),
-            zero_ms=cuda_ms(lambda: torch.zeros(n, dtype=torch.bool,
-                                                device=dev), 20),
-            plain_ms=cuda_ms(lambda: paint_cells_plain(flat, n), 5),
-            library_ms=cuda_ms(lambda: torch.zeros(
-                n + 1, dtype=torch.bool, device=dev).index_put_(
-                    (idx,), true), 10),
-            index_put_into_zeroed_ms=cuda_ms(
-                lambda: slots.index_put_((idx,), true), 10),
+            **device_times(
+                ms=(lambda: paint_cells(flat, n), 20),
+                launch_ms=(lambda: _launch(flat, grid), 20),
+                zero_ms=(lambda: torch.zeros(n, dtype=torch.bool,
+                                             device=dev), 20),
+                plain_ms=(lambda: paint_cells_plain(flat, n), 5),
+                library_ms=(lambda: torch.zeros(
+                    n + 1, dtype=torch.bool, device=dev).index_put_(
+                        (idx,), true), 10),
+                index_put_into_zeroed_ms=(
+                    lambda: slots.index_put_((idx,), true), 10)),
             bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3))
     ok = mismatched == 0 and all(r["repeat_bit_identical"] for r in rows)
     emit("paint_vs_plain", ok=ok, tolerance="exact", sets=rows)
@@ -582,12 +621,96 @@ def phase_paint(dev, inputs):
     return rows, mismatched
 
 
+def phase_probes(dev, kernels):
+    """The probe entry point at the TPU probes' shapes, then each workload
+    held against its plain version. Returns (launches, rows)."""
+    from hector_slam_tpu_torch import probes
+    from hector_slam_tpu_torch.ops.matmul_stationary import bf16_ulps
+    ws = probes.workloads("all", device=dev)
+    reset_counts(kernels)
+    timed = probes.run(ws)
+    launches = read_counts(kernels)
+    issued = {name: sum(r["launches"] for r in timed if r["kernel"] == name)
+              for name in kernels}
+    rows = []
+    for w, t in zip(ws, timed):
+        lo, hi = w.reps
+        k1, k2, plain = w.call(lo), w.call(lo), w.plain(lo)
+        torch.cuda.synchronize()
+        abs_err = float((k1.float() - plain.float()).abs().max())
+        ulps = (float(bf16_ulps(k1, plain).max())
+                if w.kernel == "matmul_stationary" else None)
+        work_bytes, work_ops = w.work(hi)
+        t_bytes = work_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = work_ops / OPS_PER_S[w.op_type] * 1e3
+        row = dict(
+            t, max_abs_err=abs_err, max_ulps=ulps,
+            agrees=(ulps <= MM_ULPS if ulps is not None
+                    else torch.equal(k1, plain)),
+            repeat_bit_identical=bool(torch.equal(k1, k2)),
+            library_ms=None, library_note=w.library_note or None,
+            bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
+            bound_ms=max(t_bytes, t_ops))
+        # device times: the plain version at the low rep count, and the
+        # library calls at the high one replayed from one CUDA graph, so
+        # that their many launches reach the device back to back
+        library = ({"library_ms": (probes.graphed(lambda: w.library(hi)), 2)}
+                   if w.library else {})
+        row.update(device_times(plain_ms=(lambda: w.plain(lo), 2), **library))
+        row["host_in"] += [] if t["device_only"] else ["ms"]
+        rows.append(row)
+    ok = (launches == issued and all(
+        r["agrees"] and r["repeat_bit_identical"] and r["finite"]
+        for r in rows))
+    emit("probes", ok=ok, tolerance=f"exact; matmul_stationary <= {MM_ULPS} "
+         "bf16 ulps", kernel_launches=launches, issued_launches=issued,
+         probes=rows)
+    if not ok:
+        raise SystemExit("a probe kernel failed its checks")
+    return launches, rows
+
+
+def probe_entry(name, source, replaces, paths, rows):
+    """A probe kernel's kernels-line entry: means over its workloads, each
+    launched alike on the probes path; ms and library_ms at the high rep
+    count, plain_ms and ms_lo at the low one."""
+    mine = [r for r in rows if r["kernel"] == name]
+
+    def mean(key):
+        return sum(r[key] for r in mine) / len(mine)
+
+    lib = [r["library_ms"] for r in mine]
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces,
+        "launches": sum(p[name] for p in paths.values()),
+        "launches_by_path": {k: p[name] for k, p in paths.items()},
+        "max_abs_err": max(r["max_abs_err"] for r in mine),
+        "ms": mean("ms_hi"), "plain_ms": mean("plain_ms"),
+        "bound_ms": mean("bound_ms"),
+        "bound_by": ("operations" if mean("bound_ops_ms")
+                     >= mean("bound_bytes_ms") else "bytes"),
+        "library_ms": None if None in lib else mean("library_ms"),
+        "library_note": mine[0]["library_note"],
+        "host_in": sorted({k for r in mine for k in r["host_in"]}),
+        "ms_lo": mean("ms_lo"),
+        "reps": "ms, bound_ms, library_ms at each probe's high rep count; "
+                "ms_lo, plain_ms at its low one",
+        "workloads": [r["probe"] for r in mine]}
+
+
 def run_paths(dev):
     """Drives the main path's phases on ``dev`` and returns the kernels
     line's entries."""
+    from hector_slam_tpu_torch.ops.dyn_slice import dyn_slice
     from hector_slam_tpu_torch.ops.interp_moments import interp_moments
+    from hector_slam_tpu_torch.ops.matmul_stationary import matmul_stationary
     from hector_slam_tpu_torch.ops.paint_cells import paint_cells
-    kernels = {"interp_moments": interp_moments, "paint_cells": paint_cells}
+    from hector_slam_tpu_torch.ops.paint_runs import paint_runs
+    from hector_slam_tpu_torch.ops.take_along import take_along
+    kernels = {"interp_moments": interp_moments, "paint_cells": paint_cells,
+               "take_along": take_along, "matmul_stationary": matmul_stationary,
+               "dyn_slice": dyn_slice, "paint_runs": paint_runs}
     abs_kvp = phase_kernel_vs_plain(dev)
     paths, paint_inputs = {}, {}
     paths["sequential"], (pose, scan) = phase_sequential(kernels)
@@ -599,6 +722,7 @@ def run_paths(dev):
     paint_inputs["shared_fleet"] = ("shared", poses, scans)
     paint_rows, paint_bad = phase_paint(dev, {
         k: v + (paths[k]["paint_cells"],) for k, v in paint_inputs.items()})
+    paths["probes"], probe_rows = phase_probes(dev, kernels)
     for name in kernels:
         if not any(p[name] for p in paths.values()):
             raise SystemExit(f"{name} was launched on no main path")
@@ -622,6 +746,7 @@ def run_paths(dev):
     def by_path(name):
         return {k: p[name] for k, p in paths.items()}
 
+    pdir = "hector_slam_tpu_torch/csrc/"
     return [{
         "name": "interp_moments",
         "route": "cuda",
@@ -636,6 +761,7 @@ def run_paths(dev):
         "bound_by": ("operations" if mean("bound_ops_ms")
                      >= mean("bound_bytes_ms") else "bytes"),
         "library_ms": None,
+        "host_in": sorted({k for lv in levels for k in lv["host_in"]}),
     }, {
         "name": "paint_cells",
         "route": "cuda",
@@ -649,7 +775,17 @@ def run_paths(dev):
         "bound_ms": pmean("bound_ms"),
         "bound_by": "bytes",
         "library_ms": pmean("library_ms"),
-    }]
+        "host_in": sorted({k for r in paint_rows if r["set"] in weight
+                           for k in r["host_in"]}),
+    }, dict(probe_entry("take_along", pdir + "take_along.cu",
+                        "tools/probe_pallas.py:86", paths, probe_rows),
+            also_replaces="tools/probe_pallas.py:116"),
+        probe_entry("matmul_stationary", pdir + "matmul_stationary.cu",
+                    "tools/probe_pallas.py:144", paths, probe_rows),
+        probe_entry("dyn_slice", pdir + "dyn_slice.cu",
+                    "tools/probe_pallas.py:188", paths, probe_rows),
+        probe_entry("paint_runs", pdir + "paint_runs.cu",
+                    "tools/probe_mosaic_store.py:112", paths, probe_rows)]
 
 
 def main() -> int:

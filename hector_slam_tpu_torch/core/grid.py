@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..config import MapConfig
+from ..types import resolve_device
 from .cell_models import init_fill, storage_channels
 
 
@@ -108,9 +109,11 @@ def pose_difference_larger_than(pose1: torch.Tensor, pose2: torch.Tensor,
 
 
 def init_log_odds_pyramid(cfg: MapConfig, cell_model: str = "log_odds",
-                          device="cpu"):
+                          device="cuda"):
     """Freshly reset pyramid (resetGridCell semantics per cell model:
-    log-odds 0, probability models 0.5, reflectance zero counters)."""
+    log-odds 0, probability models 0.5, reflectance zero counters), on
+    the card unless the caller asks for the CPU."""
+    device = resolve_device(device)
     fill = init_fill(cell_model)
     channels = storage_channels(cell_model)
     grids = []

@@ -79,8 +79,9 @@ def _library():
 
 def _launch(quad, shape, poses_map, sin_t, cos_t, points, mask, out):
     """The bare kernel launch on checked, prepared CUDA buffers (``out``
-    f32[B, 10]); raises if the launch is refused. Not counted: callers
-    other than ``interp_moments`` only time the kernel with it."""
+    f32[B, 10]), counted in ``interp_moments.launches``; raises if the
+    launch is refused. Callers other than ``interp_moments`` time the
+    kernel with it."""
     with torch.cuda.device(quad.device):
         rc = _library()(quad.data_ptr(), shape[0], shape[1],
                         poses_map.data_ptr(), sin_t.data_ptr(),
@@ -91,6 +92,7 @@ def _launch(quad, shape, poses_map, sin_t, cos_t, points, mask, out):
     if rc != 0:
         raise RuntimeError(f"interp_moments: kernel launch failed with CUDA "
                            f"error {rc}")
+    interp_moments.launches += 1
 
 
 def prepare(quad, shape, poses_map, points, mask):
@@ -118,7 +120,6 @@ def interp_moments(
         return interp_moments_plain(quad, shape, poses_map, points, mask)
     sin_t, cos_t, out = prepare(quad, shape, poses_map, points, mask)
     _launch(quad, shape, poses_map, sin_t, cos_t, points, mask, out)
-    interp_moments.launches += 1
     return Moments(assemble_hessian(*out[:, :6].unbind(-1)),
                    out[:, 6:9], out[:, 9])
 

@@ -61,8 +61,8 @@ def _library():
 def _launch(flat: torch.Tensor, grid: torch.Tensor) -> None:
     """The bare kernel launch on checked CUDA buffers: stores 1 into the
     bool ``grid`` (1 byte per cell) at every in-range index of ``flat``;
-    raises if the launch is refused. Not counted: callers other than
-    ``paint_cells`` only time the kernel with it."""
+    raises if the launch is refused. Counted in ``paint_cells.launches``:
+    callers other than ``paint_cells`` time the kernel with it."""
     if grid.dtype != torch.bool or not grid.is_contiguous() \
             or grid.device != flat.device:
         raise ValueError("paint_cells: the grid must be a contiguous bool "
@@ -73,6 +73,7 @@ def _launch(flat: torch.Tensor, grid: torch.Tensor) -> None:
     if rc != 0:
         raise RuntimeError(f"paint_cells: kernel launch failed with CUDA "
                            f"error {rc}")
+    paint_cells.launches += 1
 
 
 def paint_cells(flat: torch.Tensor, num_cells: int) -> torch.Tensor:
@@ -85,7 +86,6 @@ def paint_cells(flat: torch.Tensor, num_cells: int) -> torch.Tensor:
     _check(flat, num_cells)
     grid = torch.zeros(num_cells, dtype=torch.bool, device=flat.device)
     _launch(flat, grid)
-    paint_cells.launches += 1
     return grid
 
 

@@ -271,7 +271,7 @@ def test_update_pyramid_bit_equal(model):
         update=tcfg.UpdateConfig(cell_model=model), max_ray_cells=200)
     rng = np.random.default_rng(25)
     jp = jgrid.init_log_odds_pyramid(jc.map, model)
-    tp = tgrid.init_log_odds_pyramid(tc.map, model)
+    tp = tgrid.init_log_odds_pyramid(tc.map, model, device="cpu")
     for _ in range(4):
         pts, origo, mask = _random_scan(rng, reach=70.0)
         pose = np.array([rng.normal(0, 0.3), rng.normal(0, 0.3),

@@ -14,7 +14,11 @@ the f32 summation order differs. Moments are held to 1e-5 of the batch's
 largest |moment| and the used counts exactly, as chip_smoke.py holds
 them. The paint kernel stores bytes: its grids are held exactly equal to
 the plain version's, and a fleet on the card bit-equal to its robots run
-one by one through ``slam_step``."""
+one by one through ``slam_step``. The probe kernels (take_along,
+dyn_slice, paint_runs) are held exactly equal to their plain versions;
+matmul_stationary within MM_ULPS bf16 ulps per element, because the
+tensor core sums a rep's products in its own order (the plain version
+and the JAX probe read 0 ulps apart on the CPU, tests/test_torch_probes.py)."""
 
 import numpy as np
 import pytest
@@ -24,9 +28,14 @@ import hector_slam_tpu_torch as ht
 from hector_slam_tpu_torch.core.interp import quad_pack
 from hector_slam_tpu_torch.io.simulator import World, simulate_trajectory
 from hector_slam_tpu_torch.ops import interp_moments as im
+from hector_slam_tpu_torch.ops import dyn_slice as dsl
+from hector_slam_tpu_torch.ops import matmul_stationary as mms
 from hector_slam_tpu_torch.ops import paint_cells as pc
+from hector_slam_tpu_torch.ops import paint_runs as pr
+from hector_slam_tpu_torch.ops import take_along as ta
 
 TOL = 1e-5
+MM_ULPS = 2
 
 
 @pytest.fixture
@@ -133,8 +142,8 @@ def test_batched_match_through_kernel_on_card(cuda_device):
                                          (64 * 256 * 256, 3_000_000)])
 def test_paint_matches_plain_on_card(cuda_device, num_cells, n):
     """Random in-range indices, the sentinel num_cells, and duplicates:
-    the kernel's grid equals the plain version's exactly, and a second
-    launch is bit-identical."""
+    the kernel's grid equals the plain version's exactly, a second
+    launch is bit-identical, and the bare launch is counted too."""
     rng = np.random.default_rng(36)
     flat = rng.integers(0, num_cells, n).astype(np.int32)
     flat[rng.random(n) < 0.3] = num_cells
@@ -146,6 +155,10 @@ def test_paint_matches_plain_on_card(cuda_device, num_cells, n):
     assert got.dtype == torch.bool and got.shape == (num_cells,)
     assert torch.equal(got, pc.paint_cells_plain(idx, num_cells))
     assert torch.equal(got, pc.paint_cells(idx, num_cells))
+    before = pc.paint_cells.launches
+    grid = torch.zeros(num_cells, dtype=torch.bool, device=cuda_device)
+    pc._launch(idx, grid)
+    assert pc.paint_cells.launches == before + 1 and torch.equal(grid, got)
 
 
 @pytest.mark.cuda
@@ -202,3 +215,98 @@ def test_fleet_equals_single_robot_steps_on_card(cuda_device):
         assert torch.equal(fleet.pose[i], solo[i].pose)
         for a, b in zip(fleet.log_odds, solo[i].log_odds):
             assert torch.equal(a[i], b)
+
+
+def _counted(fn, *args):
+    """fn(*args) once on the card, asserting it launched its kernel once."""
+    before = fn.launches
+    out = fn(*args)
+    assert fn.launches == before + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,axis,tile_rows", [
+    ((512, 128), 1, 8), ((512, 128), 0, 8), ((32, 256), 1, None),
+    ((32, 256), 0, None), ((8, 256), 1, None), ((12, 5), 0, 3),
+    ((12, 5), 1, 3)])
+def test_take_along_matches_plain_on_card(cuda_device, shape, axis,
+                                          tile_rows):
+    """The probes' tilings and an odd one (15-element tiles, indices
+    beyond the axis and negative, which wrap as Python's modulo)."""
+    rng = np.random.default_rng(37)
+    th = shape[0] if tile_rows is None else tile_rows
+    mod = (th, shape[1])[axis]
+    p = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(cuda_device)
+    idx = torch.from_numpy(rng.integers(-2 * mod, 3 * mod, shape).astype(
+        np.int32)).to(cuda_device)
+    for reps in (0, 1, 13):
+        got = _counted(ta.take_along, p, idx, reps, axis, tile_rows)
+        want = ta.take_along_plain(p, idx, reps, axis, tile_rows)
+        assert torch.equal(got, want)
+        assert torch.equal(got, ta.take_along(p, idx, reps, axis, tile_rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", dsl.MODES)
+def test_dyn_slice_matches_plain_on_card(cuda_device, mode):
+    """600 reps (the table wraps at 512) on 256^2, offsets in range, beyond
+    the edge and negative: sums bit-equal to the plain version's."""
+    rng = np.random.default_rng(38)
+    g = torch.from_numpy(rng.random((256, 256), dtype=np.float32)).to(
+        cuda_device)
+    ys = rng.integers(-300, 300, dsl.OFFSETS).astype(np.int32)
+    xs = rng.integers(-300, 300, dsl.OFFSETS).astype(np.int32)
+    ys, xs = (torch.from_numpy(v).to(cuda_device) for v in (ys, xs))
+    got = _counted(dsl.dyn_slice, g, ys, xs, 600, (32, 128), mode)
+    assert torch.equal(got, dsl.dyn_slice_plain(g, ys, xs, 600, (32, 128),
+                                                mode))
+    assert torch.equal(got, dsl.dyn_slice(g, ys, xs, 600, (32, 128), mode))
+    with pytest.raises(ValueError):
+        dsl.dyn_slice(g, ys[:100], xs[:100], 4, (32, 128), mode)
+
+
+@pytest.mark.cuda
+def test_paint_runs_matches_plain_on_card(cuda_device):
+    """16,384 runs on 1024^2, the probe's workload: grids exactly equal,
+    a second launch bit-identical, the bare launch counted too; a run off
+    its aligned segment is refused before any launch."""
+    rng = np.random.default_rng(39)
+    n = 16 * 1024
+    lo = rng.integers(0, 120, n)
+    runs = [torch.from_numpy(c.astype(np.int32)).to(cuda_device) for c in (
+        rng.integers(0, 1024, n), rng.integers(0, 8, n) * 128, lo,
+        np.minimum(lo + rng.integers(0, 8, n), 127))]
+    got = _counted(pr.paint_runs, *runs, (1024, 1024))
+    assert torch.equal(got, pr.paint_runs_plain(*runs, (1024, 1024)))
+    assert torch.equal(got, pr.paint_runs(*runs, (1024, 1024)))
+    assert 0 < int(got.sum()) <= int((runs[3] - runs[2] + 1).sum())
+    before = pr.paint_runs.launches
+    grid = torch.zeros((1024, 1024), device=cuda_device)
+    pr._launch(*runs, grid)
+    assert pr.paint_runs.launches == before + 1 and torch.equal(grid, got)
+    before = pr.paint_runs.launches
+    runs[1][5] = 64
+    with pytest.raises(ValueError, match="run 5"):
+        pr.paint_runs(*runs, (1024, 1024))
+    assert pr.paint_runs.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [16, 8192])
+def test_matmul_stationary_matches_plain_on_card(cuda_device, m):
+    """The probe's operands (a ~ U(0, 0.1), w ~ U(0, 0.01)) at reps 0, 1,
+    8 and 64 (before the chain underflows): within MM_ULPS bf16 ulps of
+    the plain version, a second launch bit-identical."""
+    rng = np.random.default_rng(40)
+    a = torch.from_numpy((rng.random((m, 128)) * 0.1).astype(
+        np.float32)).to(cuda_device).to(torch.bfloat16)
+    w = torch.from_numpy((rng.random((128, 128)) * 0.01).astype(
+        np.float32)).to(cuda_device).to(torch.bfloat16)
+    for reps in (0, 1, 8, 64):
+        got = _counted(mms.matmul_stationary, a, w, reps)
+        want = mms.matmul_stationary_plain(a, w, reps)
+        assert float(mms.bf16_ulps(got, want).max()) <= MM_ULPS
+        assert torch.equal(got, mms.matmul_stationary(a, w, reps))
+    with pytest.raises(ValueError):
+        mms.matmul_stationary(a[:, :64].contiguous(), w, 1)

@@ -135,7 +135,7 @@ def test_update_pyramid_with_gates_matches_jax(corridor, model, layout):
     stacked = ht.stack_scans(scans)
     tposes = torch.from_numpy(np.asarray(poses))
     jlevels = list(jgrid.init_log_odds_pyramid(jc.map, model))
-    tlevels = tgrid.init_log_odds_pyramid(tc.map, model)
+    tlevels = tgrid.init_log_odds_pyramid(tc.map, model, device="cpu")
     if layout == "per_robot":
         jlevels = [[lo] * r for lo in jlevels]
         tlevels = tuple(lo.expand((r,) + lo.shape).contiguous()

@@ -13,6 +13,8 @@ import pytest
 import torch
 
 import hector_slam_tpu_torch as ht
+from hector_slam_tpu_torch import probes
+from hector_slam_tpu_torch.core.grid import init_log_odds_pyramid
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "hector_slam_tpu_torch")
@@ -56,7 +58,8 @@ def test_every_kernel_source_has_a_counted_wrapper():
     import importlib
     from hector_slam_tpu_torch.ops import cuda_build
     names = cuda_build.sources()
-    assert {"interp_moments", "paint_cells"} <= set(names)
+    assert set(names) == {"interp_moments", "paint_cells", "take_along",
+                          "matmul_stationary", "dyn_slice", "paint_runs"}
     for name in names:
         mod = importlib.import_module(f"hector_slam_tpu_torch.ops.{name}")
         assert isinstance(getattr(mod, name).launches, int)
@@ -90,6 +93,16 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_card):
             [np.zeros((3, 64, 64)), np.zeros((3, 32, 32))], np.zeros((3, 3)),
             np.zeros((3, 3)), np.zeros((3, 3, 3)), np.zeros(3), np.zeros(3),
             cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_log_odds_pyramid(cfg.map)
+    with pytest.raises(RuntimeError, match="cuda"):
+        probes.workloads("mm")
+    with pytest.raises(RuntimeError, match="cuda"):
+        probes.main(["gather"])
+    # the probes time the card: workloads built on the CPU are refused
+    with pytest.raises(RuntimeError, match="cuda"):
+        probes.run(probes.workloads("ds", device="cpu"))
+    assert init_log_odds_pyramid(cfg.map, device="cpu")[1].shape == (32, 32)
     state = ht.init_state(cfg, device="cpu")
     assert all(t.device.type == "cpu" for t in state.log_odds + state.quads)
     fleet = ht.init_fleet(cfg, 3, device="cpu")
