@@ -17,7 +17,8 @@ the main path through the entry points a user calls:
   4. sequential SLAM — the 435-scan corridor fixture on BENCH_CONFIG,
      held against the committed JAX reference trajectory
      (tests/fixtures/corridor_jax_reference.npz): every gate equal, equal
-     update counts, pose RMSE < 5 mm; six paints per gated update;
+     update counts, pose RMSE < 5 mm; one paint launch per gated update
+     (its six cell sets in one table);
   5. batched matching — the bench.py workload: a map built with known
      poses, 4096 hypotheses (sigma 0.05) matched through
      match_hypotheses_kernel (14 kernel launches per call), a
@@ -26,18 +27,20 @@ the main path through the entry points a user calls:
      robot on its own simulated corridor trajectory, 25 steps: robots 0,
      21, 42 and 63 replayed alone through slam_step must agree bit for bit
      (gates, poses, every level's map); steps/s over steps 1-24 (step 0,
-     from empty maps, is an untimed warm-up) and paints per step;
+     from empty maps, is an untimed warm-up); one paint launch per update;
   7. shared fleet — shared_fleet_step with 64 robots in one BENCH_CONFIG
      pyramid, replaying the committed JAX reference's 16 steps
      (tests/fixtures/shared_fleet_jax_reference.npz, written by
      tools/make_torch_fleet_reference.py): gates equal for every robot
      and step, equal update counts, pose RMSE < 1e-4 m, each level's
-     counts of cells > 0 and < 0 equal; steps/s over steps 1-15;
-  8. paint vs plain — paint_cells at the probe's own workload (1024^2,
-     65,536 random cells) and at every index set the three map-update
-     paths above give it: grids exactly equal to the plain version's, two
-     launches bit-identical, and its time beside the plain version's, one
-     index_put_ and the bytes bound;
+     counts of cells > 0 and < 0 equal; steps/s over steps 1-15; one
+     paint launch per update;
+  8. paint vs plain — paint_cell_sets at the probe's own workload (1024^2,
+     65,536 random cells) and at one update of each of the three
+     map-update paths above (its six cell sets): grids exactly equal to
+     the plain version's, two launches bit-identical, and the update's
+     time as one call (one fill, one launch) and as six one-set calls,
+     beside the plain version's, index_put_'s and the bytes bound;
   9. probes — the cost probes of tools/probe_pallas.py and
      tools/probe_mosaic_store.py at their own shapes, driven through
      hector_slam_tpu_torch.probes (take_along over 64 [8,128] tiles on both
@@ -90,10 +93,19 @@ F32_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12
 OPS_PER_S = {"f32": F32_OPS_PER_S, "bf16": BF16_TENSOR_OPS_PER_S}
 MM_ULPS = 2   # matmul_stationary vs plain, bf16 ulps (tests/test_torch_cuda.py)
-# f32 operations per in-bounds valid query of interp_moments: transform 8,
-# fractions 4, bilinear value 9, quirk gradients 10, residual 1, rotation
-# derivative 9, nine moment products and their sums 18
-OPS_PER_USED_QUERY = 59
+# f32 operations per in-bounds valid query of interp_moments, counted from
+# the arithmetic the function needs (products reused, an FMA as 2):
+#   transform (4 products, 4 sums)                              8
+#   fractions fx, fy and 1-fx, 1-fy                             4
+#   bilinear value: P10-P00, P11-P01, two x lerps, y lerp       9
+#   quirk gradients, sharing the value's two differences:
+#     gx = (P10-P00)*(1-fx) + (P11-P01)*fx                      3
+#     gy = (P01-P00)*(1-fy) + (P11-P10)*fy                      5
+#   residual 1-M                                                1
+#   rotation derivative from the transform's products: two
+#     sums, then dxr*gx + dyr*gy (3)                            5
+#   nine moments, one FMA each                                 18
+OPS_PER_USED_QUERY = 53
 OPS_PER_OTHER_QUERY = 8   # a valid beam outside the map: the transform
 
 
@@ -277,7 +289,7 @@ def phase_sequential(kernels):
     gate_agree = int((gates == ref["map_updated"]).sum())
     count = int(state.map_update_count)
     trunc = int(metrics.truncated_free_cells.sum())
-    paints = 2 * cfg.map.levels * count
+    paints = count   # one paint launch per gated update
     ok = (gate_agree == len(gates) and count == int(ref["map_update_count"])
           and rmse < RMSE_BUDGET_M and trunc == 0
           and np.isfinite(poses).all() and poses.shape == ref["poses"].shape
@@ -449,7 +461,7 @@ def phase_fleet(kernels):
     poses = torch.stack(poses).cpu().numpy()
     gates = torch.stack([m.map_updated for m in metrics]).cpu().numpy()
     updates = int(gates.any(1).sum())
-    paints = 2 * cfg.map.levels * updates
+    paints = updates   # one paint launch per update of the whole fleet
 
     # each checked robot alone through slam_step, on the card
     solo = {}
@@ -523,7 +535,7 @@ def phase_shared_fleet(kernels):
     rmse = float(np.sqrt(np.mean((poses[..., :2]
                                   - ref["poses"][..., :2]) ** 2)))
     count = int(state.map_update_count)
-    paints = 2 * cfg.map.levels * count
+    paints = count   # one paint launch per update of the shared map
     ok = (bool((gates == ref["map_updated"]).all())
           and count == int(ref["map_update_count"]) and rmse < SHARED_RMSE_M
           and occ == ref["occupied_cells"].tolist()
@@ -550,11 +562,12 @@ def phase_shared_fleet(kernels):
 
 
 def paint_index_sets(cfg, poses, scan, layout):
-    """(name, indices i32, num_cells) of every paint one map update makes
-    at these poses: one scan (``single``), R scans into per-robot grids
-    (``per_robot``) or into one shared grid (``shared``)."""
+    """(names, indices i32, num_cells) of the six cell sets one map update
+    paints at these poses: one scan (``single``), R scans into per-robot
+    grids (``per_robot``) or into one shared grid (``shared``)."""
     from hector_slam_tpu_torch.core.mapping import cell_indices
     from hector_slam_tpu_torch.core.matcher import level_points
+    names, flats, sizes = [], [], []
     for level in range(cfg.map.levels):
         sx, sy = cfg.map.level_size(level)
         free, occ, n, _ = cell_indices(
@@ -563,59 +576,83 @@ def paint_index_sets(cfg, poses, scan, layout):
             cfg.map.top_left_offset, cfg.map.level_scale(level),
             cfg.level_max_ray_cells(level), layout == "per_robot")
         for kind, flat in (("free", free), ("occupied", occ)):
-            yield (f"{layout} L{level} {kind}",
-                   flat.reshape(-1).contiguous(), n)
+            names.append(f"L{level} {kind}")
+            flats.append(flat.reshape(-1).contiguous())
+            sizes.append(n)
+    return names, flats, sizes
 
 
 def phase_paint(dev, inputs):
-    """``inputs``: {path: (layout, poses, scan, launches on that path)}."""
+    """``inputs``: {path: (layout, poses, scan)} of one update per path.
+    Returns (rows, mismatched cells)."""
     import hector_slam_tpu_torch as ht
-    from hector_slam_tpu_torch.ops.paint_cells import (_launch, paint_cells,
-                                                       paint_cells_plain)
+    from hector_slam_tpu_torch.ops.paint_cells import (
+        _offsets, paint_cell_sets, paint_cell_sets_plain, paint_cells)
     cfg = ht.BENCH_CONFIG
     rng = np.random.default_rng(2)
     side = 1024   # the probe's own workload (tools/probe_mosaic_store.py)
     ys = rng.integers(0, side, 65536)
     xs = rng.integers(0, side, 65536)
-    sets = [("probe 1024^2 x 65536", None, torch.from_numpy(
-        (ys * side + xs).astype(np.int32)).to(dev), side * side)]
-    for path, (layout, poses, scan, _) in inputs.items():
-        sets += [(name, path, flat, n) for name, flat, n in
-                 paint_index_sets(cfg, poses, scan, layout)]
+    updates = [("probe 1024^2 x 65536", None, ["probe"], [torch.from_numpy(
+        (ys * side + xs).astype(np.int32)).to(dev)], [side * side])]
+    for path, (layout, poses, scan) in inputs.items():
+        updates.append((f"{path} update", path,
+                        *paint_index_sets(cfg, poses, scan, layout)))
     rows, mismatched = [], 0
     true = torch.ones((), dtype=torch.bool, device=dev)
-    for name, path, flat, n in sets:
-        k1 = paint_cells(flat, n)
-        k2 = paint_cells(flat, n)
-        plain = paint_cells_plain(flat, n)
-        bad = int((k1 != plain).sum())
-        mismatched += bad
-        grid = torch.zeros(n, dtype=torch.bool, device=dev)
-        slots = torch.zeros(n + 1, dtype=torch.bool, device=dev)
-        idx = flat.to(torch.int64)
-        bytes_ = 4 * flat.numel() + n   # indices read once, grid written once
+    for name, path, names, flats, sizes in updates:
+        k1 = paint_cell_sets(flats, sizes)
+        k2 = paint_cell_sets(flats, sizes)
+        plain = paint_cell_sets_plain(flats, sizes)
+        bad = [int((a != b).sum()) for a, b in zip(k1, plain)]
+        mismatched += sum(bad)
+        total = _offsets(sizes)[-1]
+        idx = [f.to(torch.int64) for f in flats]
+        slots = [torch.zeros(n + 1, dtype=torch.bool, device=dev)
+                 for n in sizes]
+        # every index read once, every grid written once
+        bytes_ = sum(4 * f.numel() + n for f, n in zip(flats, sizes))
+
+        def per_set():
+            for f, n in zip(flats, sizes):
+                paint_cells(f, n)
+
+        def library():
+            # per set, one index_put_ into a zeroed grid with a sentinel
+            # slot (the map update's indices lie in [0, num_cells])
+            for i, n in zip(idx, sizes):
+                torch.zeros(n + 1, dtype=torch.bool, device=dev).index_put_(
+                    (i,), true)
+
+        def library_into_zeroed():
+            for i, sl in zip(idx, slots):
+                sl.index_put_((i,), true)
+
+        times = device_times(
+            # the update as one call (one zero fill + one launch), as one
+            # call per set (a fill + a launch each), the zero fill alone,
+            # the plain version, and index_put_ per set with and without
+            # its fill
+            ms=(lambda: paint_cell_sets(flats, sizes), 20),
+            per_set_ms=(per_set, 20),
+            zero_ms=(lambda: torch.zeros(total, dtype=torch.bool,
+                                         device=dev), 20),
+            plain_ms=(lambda: paint_cell_sets_plain(flats, sizes), 5),
+            library_ms=(library, 10),
+            index_put_into_zeroed_ms=(library_into_zeroed, 10))
+        bound = bytes_ / HBM_BYTES_PER_S * 1e3
         rows.append(dict(
-            set=name, path=path, indices=flat.numel(), num_cells=n,
-            painted=int(plain.sum()), mismatched_cells=bad,
-            repeat_bit_identical=bool(torch.equal(k1, k2)),
-            # device times of the function (zeroed grid + kernel), the
-            # bare launch into a zeroed grid, the zero fill alone, the
-            # plain version, and one index_put_ into a zeroed grid with a
-            # sentinel slot
-            **device_times(
-                ms=(lambda: paint_cells(flat, n), 20),
-                launch_ms=(lambda: _launch(flat, grid), 20),
-                zero_ms=(lambda: torch.zeros(n, dtype=torch.bool,
-                                             device=dev), 20),
-                plain_ms=(lambda: paint_cells_plain(flat, n), 5),
-                library_ms=(lambda: torch.zeros(
-                    n + 1, dtype=torch.bool, device=dev).index_put_(
-                        (idx,), true), 10),
-                index_put_into_zeroed_ms=(
-                    lambda: slots.index_put_((idx,), true), 10)),
-            bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3))
+            update=name, path=path, sets=[dict(
+                set=s, indices=f.numel(), num_cells=n, painted=int(p.sum()),
+                mismatched_cells=m) for s, f, n, p, m in zip(
+                    names, flats, sizes, plain, bad)],
+            mismatched_cells=sum(bad),
+            repeat_bit_identical=all(torch.equal(a, b)
+                                     for a, b in zip(k1, k2)),
+            **times, bytes=bytes_, bound_ms=bound,
+            bound_share=bound / times["ms"]))
     ok = mismatched == 0 and all(r["repeat_bit_identical"] for r in rows)
-    emit("paint_vs_plain", ok=ok, tolerance="exact", sets=rows)
+    emit("paint_vs_plain", ok=ok, tolerance="exact", updates=rows)
     if not ok:
         raise SystemExit("paint_cells disagrees with its plain version")
     return rows, mismatched
@@ -720,8 +757,7 @@ def run_paths(dev):
     paint_inputs["fleet"] = ("per_robot", poses, scans)
     paths["shared_fleet"], (poses, scans) = phase_shared_fleet(kernels)
     paint_inputs["shared_fleet"] = ("shared", poses, scans)
-    paint_rows, paint_bad = phase_paint(dev, {
-        k: v + (paths[k]["paint_cells"],) for k, v in paint_inputs.items()})
+    paint_rows, paint_bad = phase_paint(dev, paint_inputs)
     paths["probes"], probe_rows = phase_probes(dev, kernels)
     for name in kernels:
         if not any(p[name] for p in paths.values()):
@@ -733,15 +769,13 @@ def run_paths(dev):
     def mean(key):
         return sum(lv[key] * lv["gn_steps"] for lv in levels) / total
 
-    # paint: each path's launches spread evenly over its six sets
-    weight = {r["set"]: paths[r["path"]]["paint_cells"] / len(
-        [q for q in paint_rows if q["path"] == r["path"]])
-        for r in paint_rows if r["path"]}
-    wsum = sum(weight.values())
+    # paint: each SLAM path's update weighted by its launches (one each)
+    slam_rows = [r for r in paint_rows if r["path"]]
+    wsum = sum(paths[r["path"]]["paint_cells"] for r in slam_rows)
 
     def pmean(key):
-        return sum(r[key] * weight[r["set"]] for r in paint_rows
-                   if r["set"] in weight) / wsum
+        return sum(r[key] * paths[r["path"]]["paint_cells"]
+                   for r in slam_rows) / wsum
 
     def by_path(name):
         return {k: p[name] for k, p in paths.items()}
@@ -775,8 +809,10 @@ def run_paths(dev):
         "bound_ms": pmean("bound_ms"),
         "bound_by": "bytes",
         "library_ms": pmean("library_ms"),
-        "host_in": sorted({k for r in paint_rows if r["set"] in weight
-                           for k in r["host_in"]}),
+        "per_set_ms": pmean("per_set_ms"),
+        "host_in": sorted({k for r in slam_rows for k in r["host_in"]}),
+        "per_call": "one map update's six cell sets, zero fill included; "
+                    "per_set_ms: the same sets as six one-set calls",
     }, dict(probe_entry("take_along", pdir + "take_along.cu",
                         "tools/probe_pallas.py:86", paths, probe_rows),
             also_replaces="tools/probe_pallas.py:116"),

@@ -8,15 +8,16 @@ per-scan update is two boolean masks:
             + logOddsOcc  * [cell in occ-set and old < 50]
 The free cell j of a beam sits at the closed-form Bresenham offset
 ``start + j*offset_a + ((abs_da//2 + j*abs_db)//abs_da)*offset_b``, so
-every free cell is a dense [N, K] integer computation. Each cell set is
-one ``paint_cells`` call (the CUDA kernel ``csrc/paint_cells.cu`` on the
-card).
+every free cell is a dense [N, K] integer computation. A map update
+paints every level's free and occupied sets with one ``paint_cell_sets``
+call (one zero fill and one launch of the CUDA kernel
+``csrc/paint_cells.cu`` on the card).
 
 The rasterizer broadcasts over leading axes, so a fleet's R scans cost
-one paint per set and level, like one scan: into one [H*W] grid (a shared
-map: painting every gated robot's cells into one grid IS the OR over
-robots), or, for per-robot maps, into one [R*H*W] grid with robot r's
-cells offset by r*H*W.
+one paint call per update, like one scan: each set goes into one [H*W]
+grid (a shared map: painting every gated robot's cells into one grid IS
+the OR over robots), or, for per-robot maps, into one [R*H*W] grid with
+robot r's cells offset by r*H*W.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from ..config import SlamConfig
-from ..ops.paint_cells import paint_cells
+from ..ops.paint_cells import paint_cell_sets
 from ..types import Scan
 from .cell_models import apply_update, storage_channels
 from .grid import world_to_map_pose
@@ -112,12 +113,15 @@ def _bresenham_params(grid_shape, pose_world, scan_points, scan_origo,
     )
 
 
-def _scatter_true(flat: torch.Tensor, grid_shape) -> torch.Tensor:
-    """Commutative scatter-OR of every index (whatever the leading axes)
-    into one bool grid of ``grid_shape``, (H, W) or, for per-robot indices
-    offset by r*H*W, (R, H, W); the sentinel index (== num cells) drops."""
-    return paint_cells(flat.reshape(-1),
-                       math.prod(grid_shape)).reshape(grid_shape)
+def _paint_pairs(pairs, shapes):
+    """Commutative scatter-OR of every (free, occupied) index pair into
+    bool grids of ``shapes[k]``, (H, W) or, for per-robot indices offset
+    by r*H*W, (R, H, W): one ``paint_cell_sets`` call for all pairs; the
+    sentinel index (== num cells) drops."""
+    grids = paint_cell_sets([f for pair in pairs for f in pair],
+                            [math.prod(s) for s in shapes for _ in (0, 1)])
+    return [(grids[2 * k].reshape(s), grids[2 * k + 1].reshape(s))
+            for k, s in enumerate(shapes)]
 
 
 def _dense_free_flat(p: _RayParams, num_cells: int,
@@ -179,6 +183,40 @@ def cell_indices(
             _truncated_count(p, max_ray_cells))
 
 
+def _level_sets(grid_shape, per_robot, pose_world, scan_points, scan_origo,
+                scan_mask, offset, scale, max_ray_cells):
+    """One level's (free, occupied) index pair, the shape of the grids it
+    paints ((H, W), or (R, H, W) ``per_robot``) and its truncated cells."""
+    free, occ, _, truncated = cell_indices(
+        grid_shape, pose_world, scan_points, scan_origo, scan_mask, offset,
+        scale, max_ray_cells, per_robot)
+    shape = ((pose_world.shape[0],) if per_robot else ()) + tuple(grid_shape)
+    return (free, occ), shape, truncated
+
+
+def _update_levels(storages, level_inputs, cell_model: str,
+                   log_odds_free: float, log_odds_occupied: float):
+    """Each storage updated with its level's scan inputs (pose, points,
+    origo, mask, offset, scale, max_ray_cells): every level's index sets
+    first, then all of them painted in one call, then each level
+    updated. A storage with a leading robot axis beyond the cell model's
+    own is R maps. Returns (new storages, truncated cells per level)."""
+    pairs, shapes, truncated = [], [], []
+    for lo, inputs in zip(storages, level_inputs):
+        pair, shape, trunc = _level_sets(
+            tuple(lo.shape[-2:]), lo.dim() > 1 + storage_channels(cell_model),
+            *inputs)
+        pairs.append(pair)
+        shapes.append(shape)
+        truncated.append(trunc)
+    new = tuple(
+        apply_update(lo, free_set & ~occ_set, occ_set, cell_model,
+                     log_odds_free, log_odds_occupied)
+        for lo, (free_set, occ_set) in zip(storages,
+                                           _paint_pairs(pairs, shapes)))
+    return new, truncated
+
+
 def rasterize_scan(
     grid_shape: Tuple[int, int],
     pose_world: torch.Tensor,
@@ -198,11 +236,11 @@ def rasterize_scan(
     ``per_robot``. ``truncated_cells`` counts free cells dropped because a
     beam's dominant-axis span exceeded ``max_ray_cells`` (nonzero means a
     divergence from the reference)."""
-    free, occ, _, truncated = cell_indices(
-        grid_shape, pose_world, scan_points, scan_origo, scan_mask, offset,
-        scale, max_ray_cells, per_robot)
-    shape = ((pose_world.shape[0],) if per_robot else ()) + tuple(grid_shape)
-    return _scatter_true(free, shape), _scatter_true(occ, shape), truncated
+    pair, shape, truncated = _level_sets(
+        grid_shape, per_robot, pose_world, scan_points, scan_origo,
+        scan_mask, offset, scale, max_ray_cells)
+    [(free_set, occ_set)] = _paint_pairs([pair], [shape])
+    return free_set, occ_set, truncated
 
 
 def update_level(
@@ -225,13 +263,12 @@ def update_level(
     leading robot axis beyond the cell model's own ([R, H, W], or
     [R, 2, H, W] for reflectance) is R maps, scan r updating map r; else
     the R scans update the one map together. A robot whose mask is all
-    False leaves its cells as they were."""
-    per_robot = log_odds.dim() > 1 + storage_channels(cell_model)
-    free_set, occ_set, truncated = rasterize_scan(
-        tuple(log_odds.shape[-2:]), pose_world, scan_points, scan_origo,
-        scan_mask, offset, scale, max_ray_cells, per_robot)
-    new = apply_update(log_odds, free_set & ~occ_set, occ_set, cell_model,
-                       log_odds_free, log_odds_occupied)
+    False leaves its cells as they were. Its two sets are one paint
+    call."""
+    [new], [truncated] = _update_levels(
+        [log_odds], [(pose_world, scan_points, scan_origo, scan_mask, offset,
+                      scale, max_ray_cells)],
+        cell_model, log_odds_free, log_odds_occupied)
     return new, truncated
 
 
@@ -252,21 +289,25 @@ def update_pyramid(
     pyramids (a leading R axis on every level) take scan r into map r; a
     shared pyramid takes the union of the gated robots' cell sets in one
     update (occupied wins across robots as across beams,
-    hector_slam_tpu/parallel/shared_map.py:6-15). Either way each level
-    costs one paint per cell set."""
+    hector_slam_tpu/parallel/shared_map.py:6-15).
+
+    Either way the update is one paint call: every level's indices are
+    computed first, then all 2 x levels sets are painted together, then
+    each level is updated. So every level's index tensors are alive at
+    once: for 64 per-robot ``BENCH_CONFIG`` pyramids about 340 MB (191 MB
+    of them the level-0 free set), plus 176 MB of bool grids."""
     mcfg = cfg.map
     mask = scan.mask if gates is None else scan.mask & gates[:, None]
-    out = []
+    new, truncated = _update_levels(
+        log_odds_pyramid,
+        [(pose_world, level_points(scan.points, level),
+          level_points(scan.origo, level), mask, mcfg.top_left_offset,
+          mcfg.level_scale(level), cfg.level_max_ray_cells(level))
+         for level in range(len(log_odds_pyramid))],
+        cfg.update.cell_model, cfg.update.log_odds_free,
+        cfg.update.log_odds_occupied)
     truncated_total = torch.zeros(pose_world.shape[:-1], dtype=torch.int32,
                                   device=scan.points.device)
-    for level, lo in enumerate(log_odds_pyramid):
-        new_lo, truncated = update_level(
-            lo, pose_world, level_points(scan.points, level),
-            level_points(scan.origo, level), mask,
-            mcfg.top_left_offset, mcfg.level_scale(level),
-            cfg.level_max_ray_cells(level),
-            cfg.update.log_odds_free, cfg.update.log_odds_occupied,
-            cfg.update.cell_model)
-        out.append(new_lo)
-        truncated_total = truncated_total + truncated
-    return tuple(out), truncated_total
+    for t in truncated:
+        truncated_total = truncated_total + t
+    return new, truncated_total

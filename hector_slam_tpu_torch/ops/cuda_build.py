@@ -22,10 +22,12 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 
-# -fmad=false: no a*b+c is contracted into an FMA, so the kernels round
-# every f32 op as the plain PyTorch versions do (a contracted transform
-# can floor a query to a different cell). -Xptxas -v reports registers,
-# shared memory and spills.
+# -fmad=false: no a*b+c is contracted into an FMA implicitly, so what a
+# kernel writes as separate ops rounds as the plain PyTorch version's ops
+# do (a contracted transform can floor a query to a different cell). It
+# does not stop an explicit __fmaf_rn: interp_moments.cu writes its
+# arithmetic after the cell choice that way. -Xptxas -v reports
+# registers, shared memory and spills.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -53,16 +55,17 @@ def library_path(name: str) -> Path:
 
 def build_all(names=None, timeout: float = 600.0) -> Dict[str, str]:
     """Compiles every named source (default: all of csrc/) with one nvcc
-    process each, all started together. Returns {name: compiler output}
-    ("cached" for a library already built from the same source). Raises
-    if any build fails."""
+    process each, all started together. Returns {name: compiler output};
+    a library already built from the same source is reused, with the
+    output of its build. Raises if any build fails."""
     names = sources() if names is None else tuple(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs, logs = {}, {}
     for name in names:
         out = library_path(name)
         if out.exists():
-            logs[name] = "cached"
+            log = out.with_suffix(".log")
+            logs[name] = log.read_text() if log.exists() else "cached"
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         procs[name] = (subprocess.Popen(
@@ -79,6 +82,7 @@ def build_all(names=None, timeout: float = 600.0) -> Dict[str, str]:
             text += f"\nnvcc timed out after {timeout} s"
         logs[name] = text
         if proc.returncode == 0:
+            out.with_suffix(".log").write_text(text)
             os.replace(tmp, out)
         else:
             failed.append(name)

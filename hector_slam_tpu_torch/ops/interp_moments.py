@@ -5,9 +5,10 @@ Replaces the Pallas TPU kernel ``hector_slam_tpu/ops/pallas_interp.py:
 interp_moments_pallas`` together with its granular repair: for every
 hypothesis the nine moments of J^T J and J^T (1-M) over all beams, the
 totals vmapped ``hessian_derivs_quad`` gives (see the kernel source for
-the design). ``interp_moments`` launches the kernel for CUDA tensors and
-runs ``interp_moments_plain`` only for CPU tensors; there is no fallback
-from one to the other.
+the design: a warp per hypothesis over the valid beams, staged once per
+block in shared memory). ``interp_moments`` launches the kernel for CUDA
+tensors and runs ``interp_moments_plain`` only for CPU tensors; there is
+no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from ..core.interp import assemble_hessian, normal_eqs_quad
 from . import cuda_build
 
 _OUT = 10   # 9 moments + used count per hypothesis
+MAX_POINTS = 28672   # beams one block stages in shared memory (224 KB)
 
 
 class Moments(NamedTuple):
@@ -62,6 +64,12 @@ def _check(quad, shape, poses_map, points, mask):
             raise ValueError(f"interp_moments: {name} must be contiguous")
     if h < 2 or w < 2:
         raise ValueError(f"interp_moments: grid {shape} is smaller than 2x2")
+    if h * w > 2 ** 31 - 1:
+        raise ValueError(f"interp_moments: grid {shape} has more than "
+                         "2^31 - 1 cells (the kernel indexes them as i32)")
+    if points.shape[0] > MAX_POINTS:
+        raise ValueError(f"interp_moments: {points.shape[0]} beams, the "
+                         f"kernel stages at most {MAX_POINTS}")
     if quad.data_ptr() % 16 or points.data_ptr() % 8:
         raise ValueError("interp_moments: quad must be 16-byte and points "
                          "8-byte aligned")

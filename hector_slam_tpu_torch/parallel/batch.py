@@ -10,11 +10,11 @@ become leading tensor axes here (BASELINE.json configs 4-5):
 
 ``fleet_step`` runs the whole fleet as one batched step: per-robot GN
 matching (each robot gathers from its own quads through an int64 offset),
-per-robot gates, and one map update for all gated robots (one paint per
-cell set and level, core/mapping.update_pyramid). The JAX vmap turns the
-gate's ``lax.cond`` into a select; here non-gated robots' beams go to the
-sentinel, so their maps come out unchanged, and the one host sync per step
-skips the update when no robot gated.
+per-robot gates, and one map update for all gated robots (one paint call
+for every cell set and level, core/mapping.update_pyramid). The JAX
+vmap turns the gate's ``lax.cond`` into a select; here non-gated robots'
+beams go to the sentinel, so their maps come out unchanged, and the one
+host sync per step skips the update when no robot gated.
 """
 
 from __future__ import annotations

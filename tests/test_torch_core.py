@@ -286,3 +286,38 @@ def test_update_pyramid_bit_equal(model):
     for a, b in zip(tp, jp):
         eq(a, b)
         assert (a != a.flatten()[0]).any()
+
+
+@pytest.mark.parametrize("model", ["log_odds", "reflectance"])
+@pytest.mark.parametrize("robots", [0, 3])
+def test_update_level_bit_equal(model, robots):
+    """update_level, one scan into one map (robots=0) or R scans each into
+    its own map, equals JAX's update_level run robot by robot: storage
+    and truncated counts, over two chained updates."""
+    offset, scale, cap = (4.0, 3.2), 20.0, 120
+    lf, lo_occ = -0.4, 0.9
+    rng = np.random.default_rng(26 + robots)
+    base = np.asarray(jgrid.init_log_odds_pyramid(
+        jcfg.MapConfig(resolution=0.05, size_x=160, size_y=128, levels=1),
+        model)[0])
+    jmaps = [jnp.asarray(base)] * max(robots, 1)
+    tmaps = T(base) if robots == 0 else T(np.stack([base] * robots))
+    for _ in range(2):
+        scans = [_random_scan(rng, reach=70.0) for _ in range(max(robots, 1))]
+        poses = [np.array([rng.normal(0, 0.3), rng.normal(0, 0.3),
+                           rng.uniform(-3, 3)], np.float32) for _ in scans]
+        pts, origo, mask = (np.stack(x) for x in zip(*scans))
+        pose = np.stack(poses)
+        if robots == 0:
+            pts, origo, mask, pose = pts[0], origo[0], mask[0], pose[0]
+        tmaps, tt = tmap.update_level(tmaps, T(pose), T(pts), T(origo),
+                                      T(mask), offset, scale, cap, lf,
+                                      lo_occ, cell_model=model)
+        for i, ((p, o, m), ps) in enumerate(zip(scans, poses)):
+            jmaps[i], jt = jmap.update_level(
+                jmaps[i], jnp.asarray(ps), jnp.asarray(p), jnp.asarray(o),
+                jnp.asarray(m), offset, scale, cap, lf, lo_occ,
+                cell_model=model, raster_backend="xla")
+            assert int(tt.reshape(-1)[i]) == int(jt)
+    eq(tmaps, jmaps[0] if robots == 0 else jnp.stack(jmaps))
+    assert (tmaps != tmaps.flatten()[0]).any()

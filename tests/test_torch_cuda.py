@@ -8,13 +8,16 @@ skip it there:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: the moments kernel is built with -fmad=false and takes the
-wrapper's sin/cos, so its per-query terms are the plain version's; only
-the f32 summation order differs. Moments are held to 1e-5 of the batch's
-largest |moment| and the used counts exactly, as chip_smoke.py holds
-them. The paint kernel stores bytes: its grids are held exactly equal to
-the plain version's, and a fleet on the card bit-equal to its robots run
-one by one through ``slam_step``. The probe kernels (take_along,
+Tolerances: the moments kernel takes the wrapper's sin/cos and rounds
+the transform, bounds test, int floor and fractions as the plain version
+does (no implicit FMA, -fmad=false), so it picks the same cells and its
+used counts are held exactly; after the cell choice it computes with
+explicit FMAs and sums in its own fixed order, so its per-query terms
+differ from the plain version's by ulps, and moments are held to 1e-5 of
+the batch's largest |moment| (chip_smoke.py holds them to 1e-5 of each
+hypothesis's). The paint kernel stores bytes: its grids are held exactly
+equal to the plain version's, and a fleet on the card bit-equal to its
+robots run one by one through ``slam_step``. The probe kernels (take_along,
 dyn_slice, paint_runs) are held exactly equal to their plain versions;
 matmul_stationary within MM_ULPS bf16 ulps per element, because the
 tensor core sums a rep's products in its own order (the plain version
@@ -67,9 +70,11 @@ def _moments_inputs(dev, b, n, n_valid, size=256, seed=35):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,n_valid", [(512, 64, 60), (1, 1152, 1081),
-                                         (3, 200, 0)])
+@pytest.mark.parametrize("b", [1, 7, 512, 4096])
+@pytest.mark.parametrize("n,n_valid", [(64, 60), (1152, 1081), (200, 0)])
 def test_kernel_matches_plain_on_card(cuda_device, b, n, n_valid):
+    """B not a multiple of the block's 8 hypotheses, N not a multiple of
+    32 x 4, the tail masked or every beam masked."""
     args = _moments_inputs(cuda_device, b, n, n_valid)
     before = im.interp_moments.launches
     k = im.interp_moments(*args)
@@ -157,8 +162,98 @@ def test_paint_matches_plain_on_card(cuda_device, num_cells, n):
     assert torch.equal(got, pc.paint_cells(idx, num_cells))
     before = pc.paint_cells.launches
     grid = torch.zeros(num_cells, dtype=torch.bool, device=cuda_device)
-    pc._launch(idx, grid)
+    pc._launch([idx], [num_cells], grid)
     assert pc.paint_cells.launches == before + 1 and torch.equal(grid, got)
+
+
+def _table(dev, rng, sizes, lengths):
+    """One random index set per grid: in-range indices, 30% sentinels,
+    a quarter duplicated."""
+    flats = []
+    for n, length in zip(sizes, lengths):
+        f = rng.integers(0, n, length).astype(np.int32)
+        f[rng.random(length) < 0.3] = n
+        f[: length // 4] = f[length // 4: 2 * (length // 4)]
+        flats.append(torch.from_numpy(f).to(dev))
+    return flats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths", [
+    [746_497, 1152, 377_857, 1153, 193_537, 1151],   # a scan's six sets
+    [5, 0, 1, 2, 3, 4, 7, 4099],                     # eight, one empty
+    [47_775_744]])                                   # a fleet's L0 set
+@pytest.mark.parametrize("offset", [0, 1])
+def test_paint_sets_match_plain_on_card(cuda_device, lengths, offset):
+    """Set tables held exactly to the plain version: 16-byte aligned
+    sets and sets one index off (``flat[1:]``: a scalar head), lengths
+    not a multiple of 4, an empty set, eight sets. One launch per table,
+    and a repeat is bit-identical."""
+    rng = np.random.default_rng(41)
+    sizes = [(1 << 20, 1 << 18, 1 << 16)[k % 3] * (64 if len(lengths) == 1
+                                                   else 1)
+             for k in range(len(lengths))]
+    flats = [f[offset:] for f in _table(cuda_device, rng, sizes,
+                                        [n + offset for n in lengths])]
+    assert all(f.data_ptr() % 16 == 4 * offset for f in flats if f.numel())
+    before = pc.paint_cells.launches
+    got = pc.paint_cell_sets(flats, sizes)
+    assert pc.paint_cells.launches == before + 1
+    want = pc.paint_cell_sets_plain(flats, sizes)
+    for g, w, n in zip(got, want, sizes):
+        assert g.dtype == torch.bool and g.shape == (n,)
+        assert torch.equal(g, w)
+    again = pc.paint_cell_sets(flats, sizes)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert pc.paint_cells.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", [
+    [(64, 4099)], [(256, 4099)],
+    [(64, 16 * 64)], [(64, 16 * 64 - 1)],            # at and below 16/cell
+    [(64, 4099), (1 << 16, 5001), (256, 16 * 256)]])  # mixed in one launch
+@pytest.mark.parametrize("offset", [0, 1])
+def test_paint_read_first_sets_match_plain_on_card(cuda_device, table,
+                                                   offset):
+    """Sets of at least 16 index slots per cell take the kernel's
+    read-first branch (kReadFirstSlotsPerCell), others store blindly:
+    every set, aligned or with a scalar head (``flat[1:]``) and a tail,
+    equals the plain version exactly. The indices name only even cells,
+    with sentinels and negative indices among them, so half of every
+    grid must stay False."""
+    rng = np.random.default_rng(43)
+    sizes = [cells for cells, _ in table]
+    flats = []
+    for cells, n in table:
+        f = 2 * rng.integers(0, cells // 2, n + offset).astype(np.int32)
+        f[rng.random(n + offset) < 0.3] = cells
+        f[rng.random(n + offset) < 0.05] = -3
+        flats.append(torch.from_numpy(f).to(cuda_device)[offset:])
+    assert all(f.data_ptr() % 16 == 4 * offset for f in flats)
+    before = pc.paint_cells.launches
+    got = pc.paint_cell_sets(flats, sizes)
+    assert pc.paint_cells.launches == before + 1
+    for g, w in zip(got, pc.paint_cell_sets_plain(flats, sizes)):
+        assert torch.equal(g, w) and not g[1::2].any()
+    again = pc.paint_cell_sets(flats, sizes)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_paint_sets_count_one_launch_per_eight_sets(cuda_device):
+    """Nine sets take two launches; a table of empty sets takes none."""
+    rng = np.random.default_rng(42)
+    sizes = [4096] * 9
+    flats = _table(cuda_device, rng, sizes, [100] * 9)
+    before = pc.paint_cells.launches
+    got = pc.paint_cell_sets(flats, sizes)
+    assert pc.paint_cells.launches == before + 2
+    for g, w in zip(got, pc.paint_cell_sets_plain(flats, sizes)):
+        assert torch.equal(g, w)
+    empty = [f[:0] for f in flats[:3]]
+    assert not any(g.any() for g in pc.paint_cell_sets(empty, sizes[:3]))
+    assert pc.paint_cells.launches == before + 2
 
 
 @pytest.mark.cuda

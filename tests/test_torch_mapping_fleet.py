@@ -7,7 +7,8 @@ single-scan update and against the JAX package:
   - ``update_pyramid`` with ``gates``: a per-robot pyramid equals JAX's
     ``update_level`` run robot by robot (non-gated robots unchanged); a
     shared pyramid equals the JAX shared fleet's combined update (the OR
-    of the gated robots' JAX sets, applied once);
+    of the gated robots' JAX sets, applied once); one update of any
+    layout is one paint call;
   - ``beam_sum``, the fixed-order sum the matcher's moments go through:
     a row sums the same bits whatever batch it sits in."""
 
@@ -29,6 +30,8 @@ import hector_slam_tpu_torch as ht
 from hector_slam_tpu_torch.core import grid as tgrid
 from hector_slam_tpu_torch.core import mapping as tmap
 from hector_slam_tpu_torch.core.interp import beam_sum
+from hector_slam_tpu_torch.core.matcher import level_points
+from hector_slam_tpu_torch.ops.paint_cells import paint_cell_sets
 from hector_slam_tpu_torch.io.simulator import (World, corridor_trajectory,
                                                 simulate_trajectory)
 
@@ -179,6 +182,46 @@ def test_update_pyramid_with_gates_matches_jax(corridor, model, layout):
                 if layout == "per_robot" else np.asarray(jlevels[lvl]))
         np.testing.assert_array_equal(lo.numpy(), want)
         assert (lo != lo.flatten()[0]).any()
+
+
+@pytest.mark.parametrize("layout", ["single", "per_robot", "shared"])
+def test_update_pyramid_paints_once_per_update(corridor, monkeypatch,
+                                               layout):
+    """Every layout's update paints all 2 x levels cell sets in one
+    ``paint_cell_sets`` call (one zero fill and one kernel launch on the
+    card), and ``update_level`` its two sets in one. What the updates
+    compute is held to JAX by the parity tests."""
+    poses, scans = corridor
+    r = len(scans)
+    calls = []
+
+    def counted(flats, sizes):
+        calls.append(len(flats))
+        return paint_cell_sets(flats, sizes)
+
+    monkeypatch.setattr(tmap, "paint_cell_sets", counted)
+    levels = tgrid.init_log_odds_pyramid(CFG.map, device="cpu")
+    if layout == "single":
+        pose, scan, gates = torch.from_numpy(poses[1]), scans[1], None
+    else:
+        pose, scan = torch.from_numpy(np.asarray(poses)), \
+            ht.stack_scans(scans)
+        gates = torch.tensor([True, False, True, True])
+        if layout == "per_robot":
+            levels = tuple(lo.expand((r,) + lo.shape).contiguous()
+                           for lo in levels)
+    for step in range(2):
+        new, _ = tmap.update_pyramid(levels, pose, scan, CFG, gates)
+        assert calls == [2 * CFG.map.levels] * (step + 1)
+        assert all((a != b).any() for a, b in zip(new, levels))
+        levels = new
+    mask = scan.mask if gates is None else scan.mask & gates[:, None]
+    tmap.update_level(levels[1], pose, level_points(scan.points, 1),
+                      level_points(scan.origo, 1), mask,
+                      CFG.map.top_left_offset, CFG.map.level_scale(1),
+                      CFG.level_max_ray_cells(1), CFG.update.log_odds_free,
+                      CFG.update.log_odds_occupied)
+    assert calls == [2 * CFG.map.levels] * 2 + [2]
 
 
 @pytest.mark.parametrize("n", [1, 2, 9, 181, 1152])

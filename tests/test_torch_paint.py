@@ -91,7 +91,7 @@ def test_plain_equals_jax_scatter_true(shape):
     rng = np.random.default_rng(52)
     flat = rng.integers(0, n, (40, 33)).astype(np.int32)
     flat[rng.random(flat.shape) < 0.3] = n
-    got = tmap._scatter_true(torch.from_numpy(flat), (h, w))
+    got = pc.paint_cells(torch.from_numpy(flat), n).reshape(h, w)
     want = jmap._scatter_true(jnp.asarray(flat), (h, w))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
@@ -135,3 +135,58 @@ def test_map_update_indices_are_never_negative():
             for idx in (free, occ):
                 assert int(idx.min()) >= 0 and int(idx.max()) <= sx * sy
             assert int((free < sx * sy).sum()) > 1000
+
+
+def _mixed_table(rng):
+    """Eight sets on grids of several sizes: random in-range indices with
+    duplicates and sentinels, an empty set, one index, an all-sentinel
+    set, and a set of negative and too-large indices."""
+    sizes = [64 * 96, 37, 4096, 1, 128 * 128, 300, 5, 64 * 64]
+    flats = []
+    for k, n in enumerate(sizes):
+        f = rng.integers(0, n, 400 + 37 * k).astype(np.int32)
+        f[rng.random(f.size) < 0.3] = n
+        f[: f.size // 4] = f[f.size // 4: 2 * (f.size // 4)]
+        flats.append(f)
+    flats[1] = flats[1][:0]
+    flats[3] = np.array([0], np.int32)
+    flats[5] = np.full(77, 300, np.int32)
+    flats[6] = np.array([-1, 4, -7, 5, 2 ** 31 - 1, 4, 0], np.int32)
+    return flats, sizes
+
+
+def test_plain_sets_equal_per_set_and_jax():
+    """paint_cell_sets_plain (and paint_cell_sets on CPU tensors) is the
+    per-set paint_cells_plain, and equals the JAX _scatter_true on every
+    set without negative indices (JAX wraps those; the map update never
+    makes one)."""
+    flats, sizes = _mixed_table(np.random.default_rng(53))
+    tflats = [torch.from_numpy(f) for f in flats]
+    got = pc.paint_cell_sets_plain(tflats, sizes)
+    assert [g.shape for g in got] == [(n,) for n in sizes]
+    for g, f, n in zip(got, tflats, sizes):
+        assert torch.equal(g, pc.paint_cells_plain(f, n))
+    for g, w in zip(pc.paint_cell_sets(tflats, sizes), got):
+        assert torch.equal(g, w)
+    for g, f, n in zip(got, flats, sizes):
+        if (f < 0).any():
+            continue
+        want = jmap._scatter_true(jnp.asarray(f), (1, n))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(want)[0])
+    assert not got[1].any() and int(got[3].sum()) == 1
+    assert not got[5].any()
+    np.testing.assert_array_equal(np.flatnonzero(got[6].numpy()), [0, 4])
+
+
+def test_sets_refuse_bad_tables_on_cpu():
+    idx = torch.arange(4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        pc.paint_cell_sets([idx, idx], [8])
+    with pytest.raises(ValueError):
+        pc.paint_cell_sets([], [])
+    with pytest.raises(TypeError):
+        pc.paint_cell_sets([idx, idx.long()], [8, 8])
+    with pytest.raises(ValueError):
+        pc.paint_cell_sets([idx], [0])
+    with pytest.raises(ValueError):
+        pc.paint_cell_sets([idx.reshape(2, 2).t()], [8])
