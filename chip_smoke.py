@@ -47,17 +47,20 @@ the main path through the entry points a user calls:
      axes and on the four one-tile operands, matmul_stationary
      [8192,128]x[128,128] bf16, dyn_slice in its three modes on 1024^2,
      1024^2 painted per cell and per run): launch counts equal to the
-     calls the probes issued; then each workload at its low rep count,
-     kernel vs plain: exactly equal (take_along, dyn_slice, paint_runs,
-     paint_cells) or within MM_ULPS bf16 ulps (matmul_stationary), two
-     launches bit-identical; the plain version's time at the low rep
-     count, the library calls' (replayed from one CUDA graph) and the
-     bound at the high one;
+     calls the probes issued; then each workload at its low and its high
+     rep count, kernel vs plain: exactly equal (take_along, dyn_slice,
+     paint_runs, paint_cells) or within MM_ULPS bf16 ulps
+     (matmul_stationary), two launches bit-identical; the plain version's
+     time at the low rep count, the library calls' (replayed from one
+     CUDA graph), the bound and, for the two chain probes take_along and
+     dyn_slice, the chain floor (reps x the dependent latency of one rep
+     / the SM clock nvidia-smi reads on the busy card) at the high one;
  10. the kernels line: per kernel, its launches on the main path (each
      path, the probes included, is driven with the counts set to 0 just
      before it and read just after), its largest error against the plain
      version, its time, the plain version's and the library call's time,
-     and the bound computed from this run's inputs.
+     and the bound computed from this run's inputs (and the chain floor
+     for take_along and dyn_slice).
 Kernel, plain-version and library times are device times: the calls are
 queued behind a device sleep (probes.time_ms), and ``host_in`` names any
 time that still includes the host's (the function synchronises, or its
@@ -107,6 +110,19 @@ MM_ULPS = 2   # matmul_stationary vs plain, bf16 ulps (tests/test_torch_cuda.py)
 #   nine moments, one FMA each                                 18
 OPS_PER_USED_QUERY = 53
 OPS_PER_OTHER_QUERY = 8   # a valid beam outside the map: the transform
+# Dependent-issue latencies, in SM cycles, of the probe kernels' loop-
+# carried chains: the Volta microbenchmark figures (Jia et al., "Dissecting
+# the NVIDIA Volta GPU Architecture via Microbenchmarking", 2018: 4 for an
+# f32 add or multiply, 19 for a shared-memory load), taken as a lower bound
+# for Hopper; not measured on the card.
+F32_LATENCY_CYCLES = 4
+SHARED_LOAD_LATENCY_CYCLES = 19
+CHAIN_CYCLES_PER_REP = {
+    # tile 0's previous accumulator from shared memory, times 1e-30, plus
+    # p, plus the element's own accumulator
+    "take_along": SHARED_LOAD_LATENCY_CYCLES + 3 * F32_LATENCY_CYCLES,
+    # one add to the element's accumulator
+    "dyn_slice": F32_LATENCY_CYCLES}
 
 
 def emit(phase: str, **fields) -> None:
@@ -213,6 +229,20 @@ def phase_device():
          count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
     return smi
+
+
+def sm_clock_mhz() -> dict:
+    """The SM clock nvidia-smi reads while the card runs a device sleep
+    (a busy card's clock, not an idle one's), beside its maximum."""
+    from hector_slam_tpu_torch.probes import _sleep_cycles_per_ms
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2000 * _sleep_cycles_per_ms()))
+    busy, top = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.splitlines()[0].split(",")
+    torch.cuda.synchronize()
+    return {"sm_clock_mhz": float(busy), "max_sm_clock_mhz": float(top)}
 
 
 def phase_build():
@@ -669,25 +699,41 @@ def phase_probes(dev, kernels):
     launches = read_counts(kernels)
     issued = {name: sum(r["launches"] for r in timed if r["kernel"] == name)
               for name in kernels}
+    clock = sm_clock_mhz()
     rows = []
     for w, t in zip(ws, timed):
         lo, hi = w.reps
-        k1, k2, plain = w.call(lo), w.call(lo), w.plain(lo)
-        torch.cuda.synchronize()
-        abs_err = float((k1.float() - plain.float()).abs().max())
-        ulps = (float(bf16_ulps(k1, plain).max())
-                if w.kernel == "matmul_stationary" else None)
+        checks = []
+        for reps in w.reps:
+            k1, k2, plain = w.call(reps), w.call(reps), w.plain(reps)
+            torch.cuda.synchronize()
+            ulps = (float(bf16_ulps(k1, plain).max())
+                    if w.kernel == "matmul_stationary" else None)
+            checks.append(dict(
+                reps=reps,
+                max_abs_err=float((k1.float() - plain.float()).abs().max()),
+                max_ulps=ulps,
+                agrees=(ulps <= MM_ULPS if ulps is not None
+                        else torch.equal(k1, plain)),
+                repeat_bit_identical=bool(torch.equal(k1, k2))))
         work_bytes, work_ops = w.work(hi)
         t_bytes = work_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = work_ops / OPS_PER_S[w.op_type] * 1e3
         row = dict(
-            t, max_abs_err=abs_err, max_ulps=ulps,
-            agrees=(ulps <= MM_ULPS if ulps is not None
-                    else torch.equal(k1, plain)),
-            repeat_bit_identical=bool(torch.equal(k1, k2)),
+            t, checks=checks,
+            max_abs_err=max(c["max_abs_err"] for c in checks),
+            max_ulps=(None if checks[0]["max_ulps"] is None
+                      else max(c["max_ulps"] for c in checks)),
+            agrees=all(c["agrees"] for c in checks),
+            repeat_bit_identical=all(c["repeat_bit_identical"]
+                                     for c in checks),
             library_ms=None, library_note=w.library_note or None,
             bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
             bound_ms=max(t_bytes, t_ops))
+        if w.kernel in CHAIN_CYCLES_PER_REP:
+            # the loop-carried floor: hi reps of dependent latency
+            row["chain_floor_ms"] = (hi * CHAIN_CYCLES_PER_REP[w.kernel]
+                                     / (clock["sm_clock_mhz"] * 1e3))
         # device times: the plain version at the low rep count, and the
         # library calls at the high one replayed from one CUDA graph, so
         # that their many launches reach the device back to back
@@ -700,8 +746,10 @@ def phase_probes(dev, kernels):
         r["agrees"] and r["repeat_bit_identical"] and r["finite"]
         for r in rows))
     emit("probes", ok=ok, tolerance=f"exact; matmul_stationary <= {MM_ULPS} "
-         "bf16 ulps", kernel_launches=launches, issued_launches=issued,
-         probes=rows)
+         "bf16 ulps", kernel_launches=launches, issued_launches=issued, **clock,
+         chain_cycles_per_rep=CHAIN_CYCLES_PER_REP,
+         chain_latency_source="Volta microbenchmark figures (Jia et al. "
+         "2018), not measured on this card", probes=rows)
     if not ok:
         raise SystemExit("a probe kernel failed its checks")
     return launches, rows
@@ -717,6 +765,10 @@ def probe_entry(name, source, replaces, paths, rows):
         return sum(r[key] for r in mine) / len(mine)
 
     lib = [r["library_ms"] for r in mine]
+    chain = ({"chain_floor_ms": mean("chain_floor_ms"),
+              "bound_share": mean("bound_ms") / mean("ms_hi"),
+              "chain_floor_share": mean("chain_floor_ms") / mean("ms_hi")}
+             if name in CHAIN_CYCLES_PER_REP else {})
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces,
@@ -729,10 +781,12 @@ def probe_entry(name, source, replaces, paths, rows):
                      >= mean("bound_bytes_ms") else "bytes"),
         "library_ms": None if None in lib else mean("library_ms"),
         "library_note": mine[0]["library_note"],
+        **chain,
         "host_in": sorted({k for r in mine for k in r["host_in"]}),
         "ms_lo": mean("ms_lo"),
-        "reps": "ms, bound_ms, library_ms at each probe's high rep count; "
-                "ms_lo, plain_ms at its low one",
+        "reps": "ms, bound_ms, library_ms (and chain_floor_ms where given) "
+                "at each probe's high rep count; ms_lo, plain_ms at its low "
+                "one",
         "workloads": [r["probe"] for r in mine]}
 
 

@@ -11,40 +11,70 @@
 //   (s) = (r, ix) on axis 1, (ix, c) on axis 0
 //   acc[t][r][c] += p[t][s] + acc[0][s] * 1e-30
 // where acc[0] is the FIRST tile's accumulator of rep i-1 (the probe adds
-// acc[:th] to every tile). The f32 expression order is the probe's, and
-// -fmad=false keeps the product and the add apart, so the result is the
-// plain version's bit for bit.
+// acc[:th] to every tile). The f32 expression order is the probe's, with
+// the product and the adds as explicit __fmul_rn / __fadd_rn, so the
+// result is the plain version's bit for bit. The 1e-30 term is kept: it
+// is the loop-carried dependency the probe measures, and it changes the
+// result where p[s] is 0.
 //
-// The loop-carried dependency crosses elements: every tile reads tile 0's
-// accumulator at gathered positions, so rep i of any tile needs all of
-// tile 0's rep i-1. It is what the probe measures, so it is kept, not
-// hoisted. Design: one block per tile, and every block recomputes tile
-// 0's chain itself, which depends on nothing else. Tile 0's accumulator
-// lives in shared memory, double-buffered (read rep i-1, write rep i), so
-// one __syncthreads per rep orders the chain; the block's own tile's
-// accumulator stays in registers (only its own thread reads it). This
-// needs no grid-wide barrier (a cooperative launch with one grid sync per
-// rep), at the price of twice the arithmetic in blocks t > 0. The 64-tile
-// probe runs 64 blocks; a one-tile operand (gather_big, at most 32 KB)
-// runs one block.
+// Design: the chain unit is a LINE of tile 0 -- a row on axis 1, a column
+// on axis 0 -- because a gather never leaves its line: rep i of element
+// (line u, position q) reads only line u of tile 0's rep i-1. In line
+// coordinates both axes are one function (a line of length L = mod, the
+// gathered position s = (idx + i) mod L within it), so one kernel serves
+// both; only the staging address differs. One warp holds one line (L > 32:
+// lane l holds positions l, l+32, ..., K = 2, 4 or 8 a lane) or 32 / L
+// whole lines (L <= 32: one position a lane), so every exchange stays
+// inside the warp and the rep loop has no block barrier.
 //
-// What bounds it on the card: neither bytes nor operations, but the
-// latency of one rep (shared-memory gathers, then a block barrier) times
-// the number of reps; the work per rep is a few thousand elements. The
-// bound the repo reports is 3 f32 operations per element per rep over the
-// f32 peak, and the operand, indices and output moved once.
+// A warp works for one tile t. For t = 0 it runs tile 0's lines; for
+// t > 0 it runs the same lines of tile 0 again beside tile t's, reading
+// the exchanged tile-0 values at tile t's own indices. The recomputation
+// (K elements a lane) is cheaper than any wait on another warp, so no
+// warp waits for another. Blocks are as small as the grid allows (one warp
+// unless there are more than 32 warps per SM to place), so the probes'
+// 512 (64 [8,128] tiles, axis 1), 2048 (axis 0), 32 and 256 warps spread
+// over the card's SMs.
 //
-// Shared memory: tile 0 of p, this block's tile of p, and the two
-// accumulator buffers: 16 bytes per tile element, 128 KB at the largest
-// tile (8192 elements), above the 48 KB default, hence the attribute.
+// The exchange, by line length (one kernel, K a template argument):
+//  * L <= 32 (one position a lane): __shfl_sync from the lane that holds
+//    the gathered position, for tile 0's accumulator and for p, so a rep
+//    needs no store and no __syncwarp. On an H100 SXM this read 49 and
+//    23 ns a rep (64 [8,128] tiles and one [32,256] operand, axis 0)
+//    where a double-buffered shared-memory exchange read 107 and 56.
+//  * L > 32 (K = 2, 4, 8 a lane): a warp-private, double-buffered line in
+//    shared memory (read rep i-1's buffer, write rep i's), one __syncwarp
+//    a rep. Shuffles cost K per gathered value here (a shuffle moves one
+//    register slot, then a select), so 2 K^2 a lane and rep; shared
+//    memory costs one load per gathered value at any length. Each slot
+//    holds {p, accumulator} (one 8-byte load gathers both), and the buffer
+//    is rotated (chain_shared) so that every gather reads a fixed address.
+// A rep issues all its loads before its arithmetic and stores: the
+// compiler does not move a shared load above an earlier shared store, so
+// a load-compute-store sequence per element would run the K elements one
+// after another.
+//
+// What bounds it on the card: the chain. One rep is the exchange (a
+// shuffle, or a store, __syncwarp and a load), a multiply and two adds,
+// in order, for every rep; a rep's independent work is a few gathers a
+// lane. A one-warp line of 256 issues ~100 instructions a rep on one
+// scheduler; where many warps share an SM (the 64-tile probe) the
+// shared-memory pipe adds its own limit: random gathers within a line
+// meet bank conflicts. The bound the repo reports is 3 f32 operations per
+// element and rep over the f32 peak, and the operand, indices and output
+// moved once; chip_smoke.py puts the chain floor beside it.
+//
+// Limit: a line of at most 256 positions (8 a lane in registers). The
+// number of lines, and so the tile size, is free.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
-constexpr int kMaxPerThread = 8;   // tile elements per thread
-constexpr int kMaxTile = kMaxThreads * kMaxPerThread;
+constexpr int kWarp = 32;
+constexpr int kMaxPerLane = 8;
+constexpr int kMaxWarpsPerBlock = 8;
+constexpr int kMaxBlocksPerSm = 32;   // Hopper's resident-block limit
 constexpr float kTiny = 1e-30f;
 
 __device__ __forceinline__ int floor_mod(int x, int m) {
@@ -52,93 +82,233 @@ __device__ __forceinline__ int floor_mod(int x, int m) {
   return r < 0 ? r + m : r;
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-take_along_kernel(const float* __restrict__ p, const int* __restrict__ idx,
-                  float* __restrict__ out, int th, int tw, int reps,
-                  int axis) {
-  extern __shared__ float smem[];
-  const int n = th * tw;
-  const int t = blockIdx.x;
-  const bool own = t != 0;   // block 0's own tile is tile 0
-  float* p0 = smem;
-  float* pt = smem + n;
-  float* acc0 = smem + 2 * n;   // two buffers of n
-  const float* p_t = p + static_cast<long long>(t) * n;
-  const int* idx_t = idx + static_cast<long long>(t) * n;
-  const int mod = axis == 1 ? tw : th;
-  const int stride = axis == 1 ? 1 : tw;
+// 8-byte shared-memory accesses at 32-bit shared addresses. Volatile, so
+// they stay in program order with each other and with __syncwarp.
+__device__ __forceinline__ float2 load2(unsigned addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
 
-  int base[kMaxPerThread], ix0[kMaxPerThread], ixt[kMaxPerThread];
-  float acct[kMaxPerThread];
-#pragma unroll
-  for (int k = 0; k < kMaxPerThread; ++k) {
-    const int e = threadIdx.x + k * blockDim.x;
-    base[k] = 0;
-    ix0[k] = 0;
-    ixt[k] = 0;
-    acct[k] = 0.f;
-    if (e < n) {
-      const int r = e / tw, c = e - r * tw;
-      base[k] = axis == 1 ? r * tw : c;
-      ix0[k] = floor_mod(idx[e], mod);
-      ixt[k] = floor_mod(idx_t[e], mod);
-      p0[e] = p[e];
-      pt[e] = p_t[e];
-      acc0[e] = 0.f;
-    }
-  }
-  __syncthreads();
+__device__ __forceinline__ void store2(unsigned addr, float x, float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(x),
+               "f"(y)
+               : "memory");
+}
 
+// The rep loop of a warp whose line is longer than 32 (K positions a
+// lane), exchanged through shared memory. Each buffer holds, per line
+// position, the pair {p, tile 0's accumulator}: buffers `a` (at shared
+// address a, two of kBuf bytes) for tile 0's gathers, and `b` (at a +
+// 2 kBuf) = {tile t's p, tile 0's accumulator} for tile t's. The buffers
+// are ROTATED: in the buffer rep i reads, logical position s sits at slot
+// (s - i) mod L, so the position a lane gathers, (idx + i) mod L, is
+// always slot idx mod L: every gather is one 8-byte load (p and the
+// accumulator together) at a fixed address plus the buffer's, and only
+// the slot an element stores into, (q - i - 1) mod L, steps once per rep.
+// rd0, rdt, wr: byte offsets within a buffer; last: slot L - 1's. A rep
+// issues its loads first, then the arithmetic and the stores.
+template <int K, bool OWN>
+__device__ __forceinline__ void chain_shared(
+    unsigned a, const bool (&live)[K], const unsigned (&rd0)[K],
+    const unsigned (&rdt)[K], unsigned (&wr)[K], const float (&q0)[K],
+    const float (&qt)[K], float (&a0)[K], float (&at)[K], unsigned last,
+    int reps) {
+  constexpr unsigned kBuf = kWarp * K * sizeof(float2);
   for (int i = 0; i < reps; ++i) {
-    const float* cur = acc0 + (i & 1) * n;
-    float* nxt = acc0 + ((i + 1) & 1) * n;
+    const unsigned cur = a + (i & 1) * kBuf, nxt = a + kBuf - (i & 1) * kBuf;
+    float2 g0[K], gt[K];
 #pragma unroll
-    for (int k = 0; k < kMaxPerThread; ++k) {
-      const int e = threadIdx.x + k * blockDim.x;
-      if (e < n) {
-        const int s0 = base[k] + ix0[k] * stride;
-        nxt[e] = cur[e] + (p0[s0] + cur[s0] * kTiny);
-        if (own) {
-          const int st = base[k] + ixt[k] * stride;
-          acct[k] = acct[k] + (pt[st] + cur[st] * kTiny);
-        }
-        // (idx + i + 1) mod mod, stepped from rep i's value
-        ix0[k] = ix0[k] + 1 == mod ? 0 : ix0[k] + 1;
-        ixt[k] = ixt[k] + 1 == mod ? 0 : ixt[k] + 1;
+    for (int k = 0; k < K; ++k) {
+      g0[k] = load2(cur + rd0[k]);
+      if (OWN) gt[k] = load2(cur + 2 * kBuf + rdt[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      a0[k] = __fadd_rn(a0[k], __fadd_rn(g0[k].x, __fmul_rn(g0[k].y, kTiny)));
+      if (OWN) {
+        at[k] = __fadd_rn(at[k],
+                          __fadd_rn(gt[k].x, __fmul_rn(gt[k].y, kTiny)));
+      }
+      wr[k] = wr[k] == 0 ? last : wr[k] - sizeof(float2);
+      if (live[k]) {
+        store2(nxt + wr[k], q0[k], a0[k]);
+        if (OWN) store2(nxt + 2 * kBuf + wr[k], qt[k], a0[k]);
       }
     }
-    __syncthreads();
+    __syncwarp();
+  }
+}
+
+// The rep loop of a warp whose lines are at most 32 long (one position a
+// lane): every value is gathered from its lane by a shuffle, so the rep
+// needs no store and no __syncwarp. Lanes outside the warp's lines run
+// along (a shuffle needs every lane) and are never gathered from.
+template <bool OWN>
+__device__ __forceinline__ void chain_shfl(float p0, float pt, int base,
+                                           int ix0, int ixt, float& a0,
+                                           float& at, int len, int reps) {
+  constexpr unsigned kAll = 0xffffffffu;
+  for (int i = 0; i < reps; ++i) {
+    const float c0 = __shfl_sync(kAll, a0, base + ix0);
+    const float q0 = __shfl_sync(kAll, p0, base + ix0);
+    if (OWN) {
+      const float ct = __shfl_sync(kAll, a0, base + ixt);
+      const float qt = __shfl_sync(kAll, pt, base + ixt);
+      at = __fadd_rn(at, __fadd_rn(qt, __fmul_rn(ct, kTiny)));
+      ixt = ixt + 1 == len ? 0 : ixt + 1;
+    }
+    a0 = __fadd_rn(a0, __fadd_rn(q0, __fmul_rn(c0, kTiny)));
+    ix0 = ix0 + 1 == len ? 0 : ix0 + 1;
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(kWarp * kMaxWarpsPerBlock)
+take_along_kernel(const float* __restrict__ p, const int* __restrict__ idx,
+                  float* __restrict__ out, int tiles, int th, int tw,
+                  int reps, int axis, int lines_per_warp,
+                  int warps_per_tile) {
+  extern __shared__ float2 smem[];   // 4 buffers of 32 K pairs a warp
+  constexpr int kSlots = kWarp * K;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const long long w =
+      static_cast<long long>(blockIdx.x) * (blockDim.x / kWarp) + warp;
+  if (w >= static_cast<long long>(tiles) * warps_per_tile) return;  // whole warp
+  const int t = static_cast<int>(w / warps_per_tile);
+  const int first_line = static_cast<int>(w % warps_per_tile) * lines_per_warp;
+  const int len = axis == 1 ? tw : th;
+  const int lines = axis == 1 ? th : tw;
+  const long long n = static_cast<long long>(th) * tw;
+
+  // slot e = lane + 32 k of the warp's lines: line e / len, position q
+  bool live[K];
+  int base[K], ix0[K], ixt[K];
+  long long at_elem[K];
+  float a0[K], at[K], q0[K], qt[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int e = lane + kWarp * k;
+    const int line = e / len, q = e - line * len;
+    const int u = first_line + line;
+    live[k] = line < lines_per_warp && u < lines;
+    base[k] = line * len;
+    ix0[k] = ixt[k] = 0;
+    a0[k] = at[k] = q0[k] = qt[k] = 0.f;
+    at_elem[k] = 0;
+    if (live[k]) {
+      const long long el = axis == 1 ? static_cast<long long>(u) * tw + q
+                                     : static_cast<long long>(q) * tw + u;
+      at_elem[k] = static_cast<long long>(t) * n + el;
+      ix0[k] = floor_mod(idx[el], len);
+      ixt[k] = floor_mod(idx[at_elem[k]], len);
+      q0[k] = p[el];
+      qt[k] = p[at_elem[k]];
+    }
   }
 
-  const float* fin = acc0 + (reps & 1) * n;
-  float* out_t = out + static_cast<long long>(t) * n;
+  if (K == 1) {
+    if (t == 0) {
+      chain_shfl<false>(q0[0], qt[0], base[0], ix0[0], ixt[0], a0[0], at[0],
+                        len, reps);
+    } else {
+      chain_shfl<true>(q0[0], qt[0], base[0], ix0[0], ixt[0], a0[0], at[0],
+                       len, reps);
+    }
+  } else {
+    // one line a warp (base 0, q = e): rep 0 reads buffer 0 unrotated
+    constexpr unsigned kBuf = kWarp * K * sizeof(float2);
+    const unsigned a =
+        static_cast<unsigned>(__cvta_generic_to_shared(smem)) + warp * 4 * kBuf;
+    unsigned rd0[K], rdt[K], wr[K];
 #pragma unroll
-  for (int k = 0; k < kMaxPerThread; ++k) {
-    const int e = threadIdx.x + k * blockDim.x;
-    if (e < n) out_t[e] = own ? acct[k] : fin[e];
+    for (int k = 0; k < K; ++k) {
+      rd0[k] = ix0[k] * sizeof(float2);
+      rdt[k] = ixt[k] * sizeof(float2);
+      wr[k] = (lane + kWarp * k) * sizeof(float2);
+      if (live[k]) {
+        store2(a + wr[k], q0[k], 0.f);
+        store2(a + 2 * kBuf + wr[k], qt[k], 0.f);
+      }
+    }
+    __syncwarp();
+    const unsigned last = (len - 1) * sizeof(float2);
+    if (t == 0) {
+      chain_shared<K, false>(a, live, rd0, rdt, wr, q0, qt, a0, at, last,
+                             reps);
+    } else {
+      chain_shared<K, true>(a, live, rd0, rdt, wr, q0, qt, a0, at, last,
+                            reps);
+    }
   }
+
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (live[k]) out[at_elem[k]] = t == 0 ? a0[k] : at[k];
+  }
+}
+
+template <int K>
+cudaError_t launch(const float* p, const int* idx, float* out, int tiles,
+                   int th, int tw, int reps, int axis, cudaStream_t stream) {
+  const int len = axis == 1 ? tw : th;
+  const int lines = axis == 1 ? th : tw;
+  const int lines_per_warp = len < kWarp ? kWarp / len : 1;
+  const int warps_per_tile = (lines + lines_per_warp - 1) / lines_per_warp;
+  const long long warps = static_cast<long long>(tiles) * warps_per_tile;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  // the fewest warps per block that place every warp in one wave
+  const long long resident = static_cast<long long>(sms) * kMaxBlocksPerSm;
+  long long per_block = (warps + resident - 1) / resident;
+  if (per_block > kMaxWarpsPerBlock) per_block = kMaxWarpsPerBlock;
+  const long long blocks = (warps + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const int threads = static_cast<int>(per_block) * kWarp;
+  const size_t smem = K == 1 ? 0 : static_cast<size_t>(per_block) * 4 *
+                                      kWarp * K * sizeof(float2);
+  err = cudaFuncSetAttribute(take_along_kernel<K>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  take_along_kernel<K><<<static_cast<unsigned>(blocks), threads, smem,
+                         stream>>>(p, idx, out, tiles, th, tw, reps, axis,
+                                   lines_per_warp, warps_per_tile);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). p, idx, out: [tiles * th, tw]
-// row-major; th * tw <= 8192. Launches on `stream` and does not
-// synchronise; returns the CUDA error of the set-up or the launch.
+// row-major; the gathered axis (tw on axis 1, th on axis 0) at most 256.
+// Launches on `stream` and does not synchronise; returns the CUDA error of
+// the set-up or the launch.
 extern "C" int hs_take_along(const void* p, const void* idx, void* out,
                              int tiles, int th, int tw, int reps, int axis,
                              void* stream) {
-  const int n = th * tw;
-  if (tiles <= 0 || n <= 0) return 0;
-  if (n > kMaxTile) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = 4 * n * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      take_along_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int threads = n < kMaxThreads ? n : kMaxThreads;
-  threads = (threads + 31) / 32 * 32;
-  take_along_kernel<<<tiles, threads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(p), static_cast<const int*>(idx),
-      static_cast<float*>(out), th, tw, reps, axis);
-  return static_cast<int>(cudaGetLastError());
+  if (tiles <= 0 || th <= 0 || tw <= 0) return 0;
+  const int len = axis == 1 ? tw : th;
+  const auto* pf = static_cast<const float*>(p);
+  const auto* ix = static_cast<const int*>(idx);
+  auto* of = static_cast<float*>(out);
+  auto* st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (len <= kWarp) {
+    err = launch<1>(pf, ix, of, tiles, th, tw, reps, axis, st);
+  } else if (len <= 2 * kWarp) {
+    err = launch<2>(pf, ix, of, tiles, th, tw, reps, axis, st);
+  } else if (len <= 4 * kWarp) {
+    err = launch<4>(pf, ix, of, tiles, th, tw, reps, axis, st);
+  } else if (len <= kMaxPerLane * kWarp) {
+    err = launch<8>(pf, ix, of, tiles, th, tw, reps, axis, st);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }

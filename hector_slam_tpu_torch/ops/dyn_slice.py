@@ -11,7 +11,8 @@ start is wrapped once by the dimension, then clamped to
 
 ``dyn_slice`` launches the kernel for CUDA tensors and runs
 ``dyn_slice_plain`` only for CPU tensors; there is no fallback from one to
-the other.
+the other. The kernel stages each warp's 512 table slots in shared memory
+(see its source), which it can do for every patch that fits the grid.
 """
 
 from __future__ import annotations

@@ -11,7 +11,10 @@ design).
 
 ``take_along`` launches the kernel for CUDA tensors and runs
 ``take_along_plain`` only for CPU tensors; there is no fallback from one
-to the other. ``idx + reps`` must stay inside int32, as in the probe.
+to the other. ``idx + reps`` must stay inside int32, as in the probe. The
+kernel holds one line of the gathered axis (a row on axis 1, a column on
+axis 0) in one warp's registers, so that axis is at most ``MAX_LINE``
+long; the tile may have any number of lines.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 
 from . import cuda_build
 
-MAX_TILE = 8192   # elements of one tile the kernel holds (th * tw)
+MAX_LINE = 256   # the gathered axis: 8 positions a lane of one warp
 
 
 def _tiling(p: torch.Tensor, tile_rows: Optional[int]):
@@ -69,9 +72,11 @@ def _check(p, idx, reps, axis, tile_rows):
     if reps < 0:
         raise ValueError(f"take_along: reps={reps} < 0")
     tiles, th, tw = _tiling(p, tile_rows)
-    if th * tw > MAX_TILE:
-        raise ValueError(f"take_along: a tile of {th}x{tw} exceeds the "
-                         f"kernel's {MAX_TILE} elements")
+    line = tw if axis == 1 else th
+    if line > MAX_LINE:
+        raise ValueError(f"take_along: a {th}x{tw} tile gathers along "
+                         f"{line} positions on axis {axis}; the kernel "
+                         f"holds at most {MAX_LINE}")
     return tiles, th, tw
 
 

@@ -320,45 +320,139 @@ def _counted(fn, *args):
     return out
 
 
+# the six take_along probe workloads (tools/probe_pallas.py gather_tiles
+# and gather_big): shape, axis, tile_rows
+TAKE_ALONG_PROBES = [((512, 128), 1, 8), ((512, 128), 0, 8),
+                     ((32, 256), 1, None), ((32, 256), 0, None),
+                     ((32, 128), 1, None), ((8, 256), 1, None)]
+
+
+def tiny_term_inputs(case, axis):
+    """Inputs where take_along's ``acc[0] * 1e-30`` term changes the
+    result (f32 p, i32 idx, tile_rows): ``zero_tiles``, 4 [8,128] tiles
+    whose tiles 1-3 are all 0 (they sum only the term); ``half_zero``, one
+    [32,128] tile with half of its entries exactly 0."""
+    rng = np.random.default_rng(69)
+    p = rng.random((32, 128), dtype=np.float32)
+    if case == "zero_tiles":
+        p[8:] = 0.0
+        tile_rows = 8
+    else:
+        p[rng.random(p.shape) < 0.5] = 0.0
+        tile_rows = None
+    mod = ((tile_rows or 32), 128)[axis]
+    return p, rng.integers(0, mod, p.shape).astype(np.int32), tile_rows
+
+
+TINY_TERM_CASES = [("zero_tiles", 1), ("zero_tiles", 0), ("half_zero", 1),
+                   ("half_zero", 0)]
+
+
+def sum_order_inputs(mode):
+    """A 256^2 grid of 2**24 and 1.0 values, where any other order of a
+    patch element's adds rounds differently, and in-range tables (the
+    probe's): (g, ys, xs), patch (32, 128), 40 reps."""
+    rng = np.random.default_rng(70 + dsl.MODES.index(mode))
+    g = np.where(rng.random((256, 256)) < 0.5, 2.0 ** 24, 1.0).astype(
+        np.float32)
+    ys = rng.integers(0, 256 - 32, dsl.OFFSETS).astype(np.int32)
+    xs = rng.integers(0, 256 - 128, dsl.OFFSETS).astype(np.int32)
+    return g, ys, xs
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,axis,tile_rows", [
-    ((512, 128), 1, 8), ((512, 128), 0, 8), ((32, 256), 1, None),
-    ((32, 256), 0, None), ((8, 256), 1, None), ((12, 5), 0, 3),
-    ((12, 5), 1, 3)])
+@pytest.mark.parametrize("shape,axis,tile_rows,reps", [
+    *[(s, a, t, (0, 1, 13, 512)) for s, a, t in TAKE_ALONG_PROBES],
+    ((12, 5), 0, 3, (0, 1, 13)), ((12, 5), 1, 3, (0, 1, 13)),
+    ((6, 100), 1, 3, (1, 13)), ((200, 3), 0, 100, (1, 13)),
+    ((40, 33), 1, 20, (13,)), ((8192, 32), 1, None, (13,))])
 def test_take_along_matches_plain_on_card(cuda_device, shape, axis,
-                                          tile_rows):
-    """The probes' tilings and an odd one (15-element tiles, indices
-    beyond the axis and negative, which wrap as Python's modulo)."""
+                                          tile_rows, reps):
+    """The six probe workloads up to their high rep count (512), the odd
+    tilings (3-row tiles of 5 columns: lines shorter than a warp and not
+    dividing it; lines of 100 and 33: not a multiple of 32) and 8,192
+    lines of one tile (more warps than fit one per block); indices beyond
+    the axis and negative, which wrap as Python's modulo."""
     rng = np.random.default_rng(37)
     th = shape[0] if tile_rows is None else tile_rows
     mod = (th, shape[1])[axis]
     p = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(cuda_device)
     idx = torch.from_numpy(rng.integers(-2 * mod, 3 * mod, shape).astype(
         np.int32)).to(cuda_device)
-    for reps in (0, 1, 13):
-        got = _counted(ta.take_along, p, idx, reps, axis, tile_rows)
-        want = ta.take_along_plain(p, idx, reps, axis, tile_rows)
+    for r in reps:
+        got = _counted(ta.take_along, p, idx, r, axis, tile_rows)
+        want = ta.take_along_plain(p, idx, r, axis, tile_rows)
         assert torch.equal(got, want)
-        assert torch.equal(got, ta.take_along(p, idx, reps, axis, tile_rows))
+        assert torch.equal(got, ta.take_along(p, idx, r, axis, tile_rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,axis", TINY_TERM_CASES)
+def test_take_along_keeps_the_tiny_term_on_card(cuda_device, case, axis):
+    """tiny_term_inputs (where dropping the 1e-30 term changes the
+    result, tests/test_torch_probes.py) at 64 reps: equal to the plain
+    version."""
+    p, idx, tile_rows = (torch.from_numpy(v).to(cuda_device) if
+                         isinstance(v, np.ndarray) else v
+                         for v in tiny_term_inputs(case, axis))
+    got = _counted(ta.take_along, p, idx, 64, axis, tile_rows)
+    assert torch.equal(got, ta.take_along_plain(p, idx, 64, axis, tile_rows))
+
+
+@pytest.mark.cuda
+def test_take_along_refuses_a_long_line_on_card(cuda_device):
+    p = torch.zeros(2, 257, device=cuda_device)
+    idx = torch.zeros(2, 257, dtype=torch.int32, device=cuda_device)
+    before = ta.take_along.launches
+    with pytest.raises(ValueError, match="at most 256"):
+        ta.take_along(p, idx, 1, 1)
+    assert ta.take_along.launches == before
+    # the other axis is 2 long: any number of lines is taken
+    assert torch.equal(ta.take_along(p, idx, 3, 0),
+                       ta.take_along_plain(p, idx, 3, 0))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", dsl.MODES)
-def test_dyn_slice_matches_plain_on_card(cuda_device, mode):
-    """600 reps (the table wraps at 512) on 256^2, offsets in range, beyond
-    the edge and negative: sums bit-equal to the plain version's."""
+@pytest.mark.parametrize("grid,patch,reps,spread", [
+    ((256, 256), (32, 128), (0, 1, 600), 300),    # offsets beyond the edge
+    ((1024, 1024), (32, 128), (1024, 16384), 0),  # the probe's workload
+    ((256, 256), (7, 100), (1, 600), 300),        # width not a multiple of 32
+    ((256, 256), (3, 20), (17, 600), 300),        # narrower than a warp
+    ((300, 1000), (40, 300), (513,), 1200)])      # a larger patch
+def test_dyn_slice_matches_plain_on_card(cuda_device, mode, grid, patch, reps,
+                                         spread):
+    """Sums bit-equal to the plain version's. ``spread`` > 0: offsets in
+    range, beyond the edge and negative, drawn from [-spread, spread);
+    0: the probe's tables, in range. 600 reps wrap the 512-slot table."""
     rng = np.random.default_rng(38)
-    g = torch.from_numpy(rng.random((256, 256), dtype=np.float32)).to(
-        cuda_device)
-    ys = rng.integers(-300, 300, dsl.OFFSETS).astype(np.int32)
-    xs = rng.integers(-300, 300, dsl.OFFSETS).astype(np.int32)
-    ys, xs = (torch.from_numpy(v).to(cuda_device) for v in (ys, xs))
-    got = _counted(dsl.dyn_slice, g, ys, xs, 600, (32, 128), mode)
-    assert torch.equal(got, dsl.dyn_slice_plain(g, ys, xs, 600, (32, 128),
-                                                mode))
-    assert torch.equal(got, dsl.dyn_slice(g, ys, xs, 600, (32, 128), mode))
+    g = torch.from_numpy(rng.random(grid, dtype=np.float32)).to(cuda_device)
+    if spread:
+        ys, xs = (rng.integers(-spread, spread, dsl.OFFSETS) for _ in "yx")
+    else:
+        ys = rng.integers(0, grid[0] - patch[0], dsl.OFFSETS)
+        xs = rng.integers(0, grid[1] - patch[1], dsl.OFFSETS)
+    ys, xs = (torch.from_numpy(v.astype(np.int32)).to(cuda_device)
+              for v in (ys, xs))
+    for r in reps:
+        got = _counted(dsl.dyn_slice, g, ys, xs, r, patch, mode)
+        assert torch.equal(got, dsl.dyn_slice_plain(g, ys, xs, r, patch,
+                                                    mode))
+        assert torch.equal(got, dsl.dyn_slice(g, ys, xs, r, patch, mode))
     with pytest.raises(ValueError):
-        dsl.dyn_slice(g, ys[:100], xs[:100], 4, (32, 128), mode)
+        dsl.dyn_slice(g, ys[:100], xs[:100], 4, patch, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", dsl.MODES)
+def test_dyn_slice_keeps_the_sum_order_on_card(cuda_device, mode):
+    """sum_order_inputs (where a pairwise sum differs,
+    tests/test_torch_probes.py): equal to the plain version."""
+    g, ys, xs = (torch.from_numpy(v).to(cuda_device)
+                 for v in sum_order_inputs(mode))
+    got = _counted(dsl.dyn_slice, g, ys, xs, 40, (32, 128), mode)
+    assert torch.equal(got, dsl.dyn_slice_plain(g, ys, xs, 40, (32, 128),
+                                                mode))
 
 
 @pytest.mark.cuda

@@ -39,6 +39,8 @@ from hector_slam_tpu_torch.ops import dyn_slice as dsl
 from hector_slam_tpu_torch.ops import matmul_stationary as mms
 from hector_slam_tpu_torch.ops import paint_runs as pr
 from hector_slam_tpu_torch.ops import take_along as ta
+# shortcut-revealing inputs shared with the card tests (no JAX there)
+from test_torch_cuda import TINY_TERM_CASES, sum_order_inputs, tiny_term_inputs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOLS = os.path.join(REPO, "tools")
@@ -108,6 +110,68 @@ def test_take_along_one_tile_is_gather_big():
                        ta.take_along(p, idx, 5, 1, tile_rows=16))
     with pytest.raises(ValueError, match="does not divide"):
         ta.take_along_plain(p, idx, 1, 1, tile_rows=5)
+
+
+def _take_along_without_the_term(p, idx, reps, axis, tile_rows):
+    """take_along_plain with ``acc[0] * 1e-30`` dropped: the shortcut the
+    tiny-term inputs must expose."""
+    tiles, th, tw = ta._tiling(p, tile_rows)
+    pt = p.reshape(tiles, th, tw)
+    it = idx.reshape(tiles, th, tw)
+    acc = torch.zeros_like(pt)
+    for i in range(reps):
+        ix = torch.remainder(it + i, (th, tw)[axis]).to(torch.int64)
+        acc = acc + torch.take_along_dim(pt, ix, dim=axis + 1)
+    return acc.reshape(p.shape)
+
+
+@pytest.mark.parametrize("case,axis", TINY_TERM_CASES)
+def test_take_along_tiny_term_changes_the_result(probe_pallas, case, axis):
+    """Tiles 1-3 all 0, or one tile half 0: the plain version equals the
+    probe (gather_tiles / gather_big in interpret mode) at 4 reps, and
+    the same function without the 1e-30 term does not."""
+    p, idx, tile_rows = tiny_term_inputs(case, axis)
+    if tile_rows is None:
+        f, _ = probe_pallas.gather_big(p.shape, axis)(4)
+    else:
+        f, _ = probe_pallas.gather_tiles(axis, tiles=4)(4)
+    want = _np(f(jnp.asarray(p), jnp.asarray(idx)))
+    tp, ti = torch.from_numpy(p), torch.from_numpy(idx)
+    got = ta.take_along(tp, ti, 4, axis, tile_rows)
+    np.testing.assert_array_equal(got.numpy(), want)
+    short = _take_along_without_the_term(tp, ti, 4, axis, tile_rows)
+    assert not torch.equal(short, got)
+
+
+def test_take_along_refuses_lines_longer_than_a_warp_holds():
+    """The kernel holds a line of the gathered axis in one warp (at most
+    MAX_LINE positions); the number of lines is free."""
+    idx = torch.zeros(4, 257, dtype=torch.int32)
+    with pytest.raises(ValueError, match="at most 256"):
+        ta._check(torch.zeros(4, 257), idx, 1, 1, None)
+    assert ta._check(torch.zeros(4, 257), idx, 1, 0, 2) == (2, 2, 257)
+    assert ta._check(torch.zeros(8192, 256), torch.zeros(
+        8192, 256, dtype=torch.int32), 1, 1, None) == (1, 8192, 256)
+
+
+@pytest.mark.parametrize("mode", dsl.MODES)
+def test_dyn_slice_sum_order_changes_the_result(probe_pallas, mode):
+    """A grid of 2**24 and 1.0 values: the plain version equals the probe
+    in interpret mode (40 reps, adds in loop order), and a pairwise sum of
+    the same patches does not."""
+    g, ys, xs = sum_order_inputs(mode)
+    f, _ = probe_pallas.dyn_slice(grid_hw=g.shape, mode=mode)(40)
+    want = _np(f(jnp.asarray(g), jnp.asarray(ys), jnp.asarray(xs)))
+    tg, tys, txs = (torch.from_numpy(v) for v in (g, ys, xs))
+    got = dsl.dyn_slice(tg, tys, txs, 40, (32, 128), mode)
+    np.testing.assert_array_equal(got.numpy(), want)
+    y0, x0 = dsl.resolve_offsets(tys, txs, tuple(g.shape), (32, 128), mode)
+    parts = [tg[y:y + 32, x:x + 128] for y, x in zip(y0[:40].tolist(),
+                                                      x0[:40].tolist())]
+    while len(parts) > 1:
+        parts = [parts[k] + parts[k + 1] if k + 1 < len(parts) else parts[k]
+                 for k in range(0, len(parts), 2)]
+    assert not torch.equal(parts[0], got)
 
 
 @pytest.mark.parametrize("mode", dsl.MODES)
