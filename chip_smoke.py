@@ -8,7 +8,8 @@ against its plain PyTorch version at the main path's shapes, and drives
 the main path through the entry points a user calls:
   1. device  — the card's name, count, power limit;
   2. build   — nvcc builds every kernel, all at once (registers and spills
-     printed);
+     printed; no kernel may spill), and matmul_stationary's SASS
+     (cuobjdump) must hold wgmma's HGMMA and no mma.sync HMMA;
   3. kernel vs plain — interp_moments at the bench shapes (random
      1024^2, 512^2, 256^2 grids, B=4096 hypotheses, N=1152 beams with
      the tail masked, some beams beyond the map edge): moments within
@@ -50,11 +51,18 @@ the main path through the entry points a user calls:
      calls the probes issued; then each workload at its low and its high
      rep count, kernel vs plain: exactly equal (take_along, dyn_slice,
      paint_runs, paint_cells) or within MM_ULPS bf16 ulps
-     (matmul_stationary), two launches bit-identical; the plain version's
-     time at the low rep count, the library calls' (replayed from one
-     CUDA graph), the bound and, for the two chain probes take_along and
-     dyn_slice, the chain floor (reps x the dependent latency of one rep
-     / the SM clock nvidia-smi reads on the busy card) at the high one;
+     (matmul_stationary, also at MM_DENORMAL_REPS, where every value of
+     its chain is denormal), two launches bit-identical; the plain
+     version's time at the low rep count, the library calls' (replayed
+     from one CUDA graph), the bound and, for the two chain probes
+     take_along and dyn_slice, the chain floor (reps x the dependent
+     latency of one rep / the SM clock nvidia-smi reads on the busy card)
+     at the high one; matmul_stationary's ns a rep over normal values and
+     over denormal ones; take_along on lines longer than 256 (LONG_LINES,
+     the kernel's block path), timed and held exactly to its plain
+     version; then a paint_runs_split line (probes.store_split: the
+     kernel's launch and grid barrier alone, + its fill, + its runs, and
+     a torch.zeros fill alone);
  10. the kernels line: per kernel, its launches on the main path (each
      path, the probes included, is driven with the counts set to 0 just
      before it and read just after), its largest error against the plain
@@ -74,6 +82,7 @@ rest of the repository beside it, it prints no result and exits 2.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -96,6 +105,16 @@ F32_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12
 OPS_PER_S = {"f32": F32_OPS_PER_S, "bf16": BF16_TENSOR_OPS_PER_S}
 MM_ULPS = 2   # matmul_stationary vs plain, bf16 ulps (tests/test_torch_cuda.py)
+# a rep count where every value of the matmul probe's chain is denormal and
+# 3-6 smallest-denormal steps above 0 (tests/test_torch_cuda.py), and one
+# just before the chain leaves the normal range, for a per-rep time over
+# normal values only
+MM_DENORMAL_REPS = 195
+MM_NORMAL_REPS = 192
+# take_along lines longer than a warp's 256 (the kernel's block path),
+# kernel vs plain at the probes' rep counts: (name, shape, axis, tile_rows)
+LONG_LINES = (("take_along (8,1024) ax1", (8, 1024), 1, None),
+              ("take_along 2x(1024,8) ax0", (2048, 8), 0, 1024))
 # f32 operations per in-bounds valid query of interp_moments, counted from
 # the arithmetic the function needs (products reused, an FMA as 2):
 #   transform (4 products, 4 sums)                              8
@@ -231,28 +250,38 @@ def phase_device():
     return smi
 
 
-def sm_clock_mhz() -> dict:
-    """The SM clock nvidia-smi reads while the card runs a device sleep
-    (a busy card's clock, not an idle one's), beside its maximum."""
-    from hector_slam_tpu_torch.probes import _sleep_cycles_per_ms
-    torch.cuda.synchronize()
-    torch.cuda._sleep(int(2000 * _sleep_cycles_per_ms()))
-    busy, top = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.splitlines()[0].split(",")
-    torch.cuda.synchronize()
-    return {"sm_clock_mhz": float(busy), "max_sm_clock_mhz": float(top)}
+def sass_counts(name: str) -> dict:
+    """Tensor-core instructions in a built kernel library's SASS
+    (``cuobjdump -sass``): wgmma's HGMMA and mma.sync's HMMA."""
+    from hector_slam_tpu_torch.ops import cuda_build
+    tool = Path(cuda_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass",
+                           str(cuda_build.library_path(name))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in ("HGMMA", "HMMA")}
 
 
 def phase_build():
+    """Builds every kernel; matmul_stationary must run on wgmma (HGMMA in
+    its SASS, no HMMA) and no kernel may spill."""
     from hector_slam_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
     logs = cuda_build.build_all()
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln or "wgmma" in ln]
              for name, log in logs.items()}
-    emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
+    spills = {name: sum(int(n) for ln in lines for n in re.findall(
+        r"(\d+) bytes spill", ln)) for name, lines in ptxas.items()}
+    mm_sass = sass_counts("matmul_stationary")
+    ok = (mm_sass["HGMMA"] > 0 and mm_sass["HMMA"] == 0
+          and not any(spills.values()))
+    emit("build", ok=ok, seconds=time.perf_counter() - t0,
+         matmul_stationary_sass=mm_sass, spill_bytes=spills, ptxas=ptxas)
+    if not ok:
+        raise SystemExit("a kernel spills, or matmul_stationary does not "
+                         "run on wgmma")
 
 
 def phase_kernel_vs_plain(dev):
@@ -699,12 +728,13 @@ def phase_probes(dev, kernels):
     launches = read_counts(kernels)
     issued = {name: sum(r["launches"] for r in timed if r["kernel"] == name)
               for name in kernels}
-    clock = sm_clock_mhz()
+    clock = probes.sm_clock_mhz()
+    extra_reps = {"matmul_stationary": (MM_DENORMAL_REPS,)}
     rows = []
     for w, t in zip(ws, timed):
         lo, hi = w.reps
         checks = []
-        for reps in w.reps:
+        for reps in w.reps + extra_reps.get(w.kernel, ()):
             k1, k2, plain = w.call(reps), w.call(reps), w.plain(reps)
             torch.cuda.synchronize()
             ulps = (float(bf16_ulps(k1, plain).max())
@@ -712,7 +742,9 @@ def phase_probes(dev, kernels):
             checks.append(dict(
                 reps=reps,
                 max_abs_err=float((k1.float() - plain.float()).abs().max()),
-                max_ulps=ulps,
+                max_ulps=ulps, plain_abs_range=(
+                    None if ulps is None else
+                    [float(plain.abs().min()), float(plain.abs().max())]),
                 agrees=(ulps <= MM_ULPS if ulps is not None
                         else torch.equal(k1, plain)),
                 repeat_bit_identical=bool(torch.equal(k1, k2))))
@@ -741,18 +773,49 @@ def phase_probes(dev, kernels):
                    if w.library else {})
         row.update(device_times(plain_ms=(lambda: w.plain(lo), 2), **library))
         row["host_in"] += [] if t["device_only"] else ["ms"]
+        if w.kernel == "matmul_stationary":
+            # does the chain's speed depend on its values? ns a rep over
+            # normal values (lo .. MM_NORMAL_REPS) and over the denormal
+            # and stuck ones (MM_NORMAL_REPS .. hi)
+            mid, _ = probes.time_ms(lambda: w.call(MM_NORMAL_REPS),
+                                    probes.CALLS)
+            row.update(
+                ms_normal_end=mid, ns_per_rep_normal=(mid - t["ms_lo"]) * 1e6
+                / (MM_NORMAL_REPS - lo), ns_per_rep_denormal=(
+                    t["ms_hi"] - mid) * 1e6 / (hi - MM_NORMAL_REPS))
+            row["cycles_per_rep"] = (t["ns_per_rep"] * clock["sm_clock_mhz"]
+                                     / 1e3)
         rows.append(row)
+    long_lines = []
+    for name, shape, axis, tile_rows in LONG_LINES:
+        w = probes._gather(np.random.default_rng(3), dev, name, "gline", shape,
+                           axis, tile_rows)
+        row = probes.run_probe(w, probes.card())
+        row["checks"] = []
+        for reps in w.reps:
+            k1, k2, plain = w.call(reps), w.call(reps), w.plain(reps)
+            row["checks"].append(dict(
+                reps=reps, agrees=bool(torch.equal(k1, plain)),
+                repeat_bit_identical=bool(torch.equal(k1, k2))))
+        long_lines.append(row)
     ok = (launches == issued and all(
         r["agrees"] and r["repeat_bit_identical"] and r["finite"]
-        for r in rows))
+        for r in rows) and all(
+        c["agrees"] and c["repeat_bit_identical"]
+        for r in long_lines for c in r["checks"]))
     emit("probes", ok=ok, tolerance=f"exact; matmul_stationary <= {MM_ULPS} "
          "bf16 ulps", kernel_launches=launches, issued_launches=issued, **clock,
          chain_cycles_per_rep=CHAIN_CYCLES_PER_REP,
          chain_latency_source="Volta microbenchmark figures (Jia et al. "
-         "2018), not measured on this card", probes=rows)
+         "2018), not measured on this card", probes=rows,
+         take_along_long_lines=long_lines)
     if not ok:
         raise SystemExit("a probe kernel failed its checks")
-    return launches, rows
+    # where paint_runs' time goes: the launch and barrier, + the fill, +
+    # the runs, and a torch.zeros fill alone (after the path's counts were
+    # read)
+    emit("paint_runs_split", **probes.store_split(dev))
+    return launches, rows, long_lines
 
 
 def probe_entry(name, source, replaces, paths, rows):
@@ -812,7 +875,7 @@ def run_paths(dev):
     paths["shared_fleet"], (poses, scans) = phase_shared_fleet(kernels)
     paint_inputs["shared_fleet"] = ("shared", poses, scans)
     paint_rows, paint_bad = phase_paint(dev, paint_inputs)
-    paths["probes"], probe_rows = phase_probes(dev, kernels)
+    paths["probes"], probe_rows, long_lines = phase_probes(dev, kernels)
     for name in kernels:
         if not any(p[name] for p in paths.values()):
             raise SystemExit(f"{name} was launched on no main path")
@@ -869,7 +932,8 @@ def run_paths(dev):
                     "per_set_ms: the same sets as six one-set calls",
     }, dict(probe_entry("take_along", pdir + "take_along.cu",
                         "tools/probe_pallas.py:86", paths, probe_rows),
-            also_replaces="tools/probe_pallas.py:116"),
+            also_replaces="tools/probe_pallas.py:116",
+            long_line_ms={r["probe"]: r["ms_hi"] for r in long_lines}),
         probe_entry("matmul_stationary", pdir + "matmul_stationary.cu",
                     "tools/probe_pallas.py:144", paths, probe_rows),
         probe_entry("dyn_slice", pdir + "dyn_slice.cu",

@@ -118,7 +118,9 @@ def slam_step(
 def run_log(state: SlamState, scans: Scan, cfg: SlamConfig):
     """Sequential replay over a stacked scan log (leading time axis).
 
-    Returns (final state, poses f32[T,3], metrics stacked over T)."""
+    Returns (final state, poses f32[T,3], metrics stacked over T). A log
+    of no scans returns the state unchanged, poses f32[0,3] and metrics of
+    length 0, as the JAX package's ``lax.scan`` does."""
     poses, metrics = [], []
     for t in range(scans.points.shape[0]):
         state, m = slam_step(state, Scan(scans.points[t], scans.origo[t],
@@ -126,6 +128,14 @@ def run_log(state: SlamState, scans: Scan, cfg: SlamConfig):
         poses.append(state.pose)
         metrics.append(m)
     if not metrics:
-        raise ValueError("run_log needs at least one scan")
+        dev = state.pose.device
+
+        def empty(*shape, dtype=torch.float32):
+            return torch.zeros((0, *shape), dtype=dtype, device=dev)
+
+        return state, empty(3), StepMetrics(
+            pose_delta=empty(3), map_updated=empty(dtype=torch.bool),
+            hessian_det=empty(), num_valid_beams=empty(dtype=torch.int32),
+            truncated_free_cells=empty(dtype=torch.int32))
     return (state, torch.stack(poses),
             StepMetrics(*(torch.stack(f) for f in zip(*metrics))))

@@ -64,8 +64,21 @@
 // element and rep over the f32 peak, and the operand, indices and output
 // moved once; chip_smoke.py puts the chain floor beside it.
 //
-// Limit: a line of at most 256 positions (8 a lane in registers). The
-// number of lines, and so the tile size, is free.
+// Lines longer than 256 (take_along_long_kernel): one block of up to
+// 1024 threads owns one line of tile 0 (and, for t > 0, the same line of
+// tile t, with tile 0's recomputed beside it as the warp path does). The
+// line's state lives in shared memory: p of tile 0 and of tile t, tile
+// 0's accumulator double-buffered (read rep i-1's, write rep i's), tile
+// t's accumulator, and both tiles' indices mod L: 7 words, 28 bytes a
+// position. A thread walks its positions (q = thread, thread + block
+// size, ...), and a rep ends with one __syncthreads(). This path is for
+// correctness: every input the plain version takes up to the limit is
+// computed here as there; its speed is recorded, not targeted.
+//
+// Limit: a line of at most kMaxLine = 8,192 positions, 224 KB of the 227
+// KB of shared memory a block may hold (the TPU probe, too, holds its
+// whole operand in VMEM). The number of lines, and so the tile size, is
+// free.
 
 #include <cuda_runtime.h>
 
@@ -74,6 +87,9 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kMaxPerLane = 8;
 constexpr int kMaxWarpsPerBlock = 8;
+constexpr int kMaxLine = 8192;         // the long path's shared-memory line
+constexpr int kLongThreads = 1024;
+constexpr int kLongWordsPerPos = 7;
 constexpr int kMaxBlocksPerSm = 32;   // Hopper's resident-block limit
 constexpr float kTiny = 1e-30f;
 
@@ -283,10 +299,89 @@ cudaError_t launch(const float* p, const int* idx, float* out, int tiles,
   return cudaGetLastError();
 }
 
+// One block per (tile t, line u) of a line longer than 256 positions.
+// Shared memory per position q of the line: p0, pt (p of tiles 0 and t),
+// two buffers of tile 0's accumulator, tile t's accumulator, s0, st (the
+// tiles' indices mod L). Rep i gathers position (s + i) mod L.
+__global__ void __launch_bounds__(kLongThreads)
+take_along_long_kernel(const float* __restrict__ p, const int* __restrict__ idx,
+                       float* __restrict__ out, int th, int tw, int reps,
+                       int axis) {
+  extern __shared__ float line_smem[];
+  const int len = axis == 1 ? tw : th;
+  const int lines = axis == 1 ? th : tw;
+  const int u = static_cast<int>(blockIdx.x % lines);
+  const int t = static_cast<int>(blockIdx.x / lines);
+  const long long n = static_cast<long long>(th) * tw;
+  const long long tile = static_cast<long long>(t) * n;
+  float* p0 = line_smem;
+  float* pt = p0 + len;
+  float* buf = pt + len;   // two buffers of len
+  float* at = buf + 2 * len;
+  int* s0 = reinterpret_cast<int*>(at + len);
+  int* st = s0 + len;
+  for (int q = threadIdx.x; q < len; q += blockDim.x) {
+    const long long el = axis == 1 ? static_cast<long long>(u) * tw + q
+                                   : static_cast<long long>(q) * tw + u;
+    p0[q] = p[el];
+    s0[q] = floor_mod(idx[el], len);
+    buf[q] = 0.f;
+    if (t > 0) {
+      pt[q] = p[tile + el];
+      st[q] = floor_mod(idx[tile + el], len);
+      at[q] = 0.f;
+    }
+  }
+  __syncthreads();
+  for (int i = 0, ir = 0; i < reps; ++i, ir = ir + 1 == len ? 0 : ir + 1) {
+    const float* cur = buf + (i & 1) * len;
+    float* nxt = buf + len - (i & 1) * len;
+    for (int q = threadIdx.x; q < len; q += blockDim.x) {
+      int s = s0[q] + ir;
+      if (s >= len) s -= len;
+      nxt[q] = __fadd_rn(cur[q], __fadd_rn(p0[s], __fmul_rn(cur[s], kTiny)));
+      if (t > 0) {
+        s = st[q] + ir;
+        if (s >= len) s -= len;
+        at[q] = __fadd_rn(at[q], __fadd_rn(pt[s], __fmul_rn(cur[s], kTiny)));
+      }
+    }
+    __syncthreads();
+  }
+  const float* fin = buf + (reps & 1) * len;
+  for (int q = threadIdx.x; q < len; q += blockDim.x) {
+    const long long el = axis == 1 ? static_cast<long long>(u) * tw + q
+                                   : static_cast<long long>(q) * tw + u;
+    out[tile + el] = t == 0 ? fin[q] : at[q];
+  }
+}
+
+cudaError_t launch_long(const float* p, const int* idx, float* out, int tiles,
+                        int th, int tw, int reps, int axis,
+                        cudaStream_t stream) {
+  const int len = axis == 1 ? tw : th;
+  const int lines = axis == 1 ? th : tw;
+  if (len > kMaxLine) return cudaErrorInvalidValue;
+  const long long blocks = static_cast<long long>(tiles) * lines;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const int threads = len < kLongThreads ? (len + kWarp - 1) / kWarp * kWarp
+                                         : kLongThreads;
+  const size_t smem = static_cast<size_t>(kLongWordsPerPos) * len * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      take_along_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  take_along_long_kernel<<<static_cast<unsigned>(blocks), threads, smem,
+                           stream>>>(p, idx, out, th, tw, reps, axis);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes). p, idx, out: [tiles * th, tw]
-// row-major; the gathered axis (tw on axis 1, th on axis 0) at most 256.
+// row-major; the gathered axis (tw on axis 1, th on axis 0) at most
+// kMaxLine = 8,192 (lines of at most 256 take the warp path, longer ones
+// the block path).
 // Launches on `stream` and does not synchronise; returns the CUDA error of
 // the set-up or the launch.
 extern "C" int hs_take_along(const void* p, const void* idx, void* out,
@@ -308,7 +403,7 @@ extern "C" int hs_take_along(const void* p, const void* idx, void* out,
   } else if (len <= kMaxPerLane * kWarp) {
     err = launch<8>(pf, ix, of, tiles, th, tw, reps, axis, st);
   } else {
-    err = cudaErrorInvalidValue;
+    err = launch_long(pf, ix, of, tiles, th, tw, reps, axis, st);
   }
   return static_cast<int>(err);
 }

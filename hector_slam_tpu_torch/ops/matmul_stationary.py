@@ -12,7 +12,9 @@ plain version can differ by one bf16 ulp where a sum rounds near a tie;
 
 ``matmul_stationary`` launches the kernel for CUDA tensors and runs
 ``matmul_stationary_plain`` only for CPU tensors; there is no fallback
-from one to the other.
+from one to the other. The kernel reads its operands from 16-byte
+aligned addresses: an operand that starts elsewhere (a view at an odd
+offset) is copied to a fresh tensor first.
 """
 
 from __future__ import annotations
@@ -63,6 +65,11 @@ def _check(a, w, reps):
         raise ValueError(f"matmul_stationary: reps={reps} < 0")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a contiguous copy of it at a 16-byte aligned address."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _library():
     lib = cuda_build.load("matmul_stationary")
     fn = lib.hs_matmul_stationary
@@ -82,6 +89,7 @@ def matmul_stationary(a: torch.Tensor, w: torch.Tensor,
     if a.device.type == "cpu":
         return matmul_stationary_plain(a, w, reps)
     _check(a, w, reps)
+    a, w = _aligned(a), _aligned(w)
     out = torch.empty(a.shape, dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
         rc = _library()(a.data_ptr(), w.data_ptr(), out.data_ptr(),

@@ -1,5 +1,6 @@
 """Run painting into a zeroed grid: the CUDA kernel ``csrc/paint_runs.cu``
-and its plain PyTorch version.
+(one launch that zeroes the grid and paints the runs) and its plain
+PyTorch version.
 
 Replaces the Pallas TPU probe ``tools/probe_mosaic_store.py:
 probe_run_store`` (design B of that probe): per run, lanes ``lo..hi`` of
@@ -71,24 +72,27 @@ def _library():
     fn = lib.hs_paint_runs
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, p, i, p]
+        fn.argtypes = [p, p, p, p, i, p, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(rows, c0, lo, hi, grid) -> None:
-    """The bare kernel launch on checked CUDA buffers into the zeroed
-    f32 ``grid``, counted in ``paint_runs.launches``; raises if the
-    launch is refused. Callers other than ``paint_runs`` time the kernel
-    with it, without the host check."""
+    """The bare kernel launch on checked CUDA buffers: zeroes the f32
+    ``grid`` (whatever it held) and paints the runs into it, counted in
+    ``paint_runs.launches``; raises if the launch is refused. Callers
+    other than ``paint_runs`` time the kernel with it, without the host
+    check."""
     if grid.dtype != torch.float32 or grid.dim() != 2 \
-            or not grid.is_contiguous() or grid.device != rows.device:
-        raise ValueError("paint_runs: the grid must be a contiguous 2-D f32 "
-                         "tensor on the runs' device")
+            or not grid.is_contiguous() or grid.device != rows.device \
+            or grid.data_ptr() % 16:
+        raise ValueError("paint_runs: the grid must be a contiguous, "
+                         "16-byte aligned 2-D f32 tensor on the runs' device")
     with torch.cuda.device(grid.device):
         rc = _library()(rows.data_ptr(), c0.data_ptr(), lo.data_ptr(),
                         hi.data_ptr(), rows.numel(), grid.data_ptr(),
-                        grid.shape[1], torch.cuda.current_stream().cuda_stream)
+                        grid.shape[0], grid.shape[1],
+                        torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paint_runs: kernel launch failed with CUDA "
                            f"error {rc}")
@@ -104,7 +108,7 @@ def paint_runs(rows: torch.Tensor, c0: torch.Tensor, lo: torch.Tensor,
     if rows.device.type == "cpu":
         return paint_runs_plain(rows, c0, lo, hi, shape)
     check_runs(rows, c0, lo, hi, shape)
-    grid = torch.zeros(shape, dtype=torch.float32, device=rows.device)
+    grid = torch.empty(shape, dtype=torch.float32, device=rows.device)
     _launch(rows, c0, lo, hi, grid)
     return grid
 

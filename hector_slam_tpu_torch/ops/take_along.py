@@ -13,8 +13,14 @@ design).
 ``take_along_plain`` only for CPU tensors; there is no fallback from one
 to the other. ``idx + reps`` must stay inside int32, as in the probe. The
 kernel holds one line of the gathered axis (a row on axis 1, a column on
-axis 0) in one warp's registers, so that axis is at most ``MAX_LINE``
-long; the tile may have any number of lines.
+axis 0) on one SM: in one warp up to 256 positions, in one block's shared
+memory beyond that. So that axis is at most ``MAX_LINE`` long, on the CPU
+as on the card (``_check`` runs first on both); the tile may have any
+number of lines. A longer line is the one input that the TPU probe in
+interpret mode computes and the port refuses: the TPU kernel, too, holds
+its whole operand in fast memory (``BlockSpec(memory_space=VMEM)``,
+``tools/probe_pallas.py:119``), so a line past what the card's shared
+memory holds is past what the probe was built for.
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ import torch
 
 from . import cuda_build
 
-MAX_LINE = 256   # the gathered axis: 8 positions a lane of one warp
+MAX_LINE = 8192   # the gathered axis: 28 bytes a position of one block's
+#                  shared memory (csrc/take_along.cu kMaxLine)
 
 
 def _tiling(p: torch.Tensor, tile_rows: Optional[int]):
@@ -75,8 +82,8 @@ def _check(p, idx, reps, axis, tile_rows):
     line = tw if axis == 1 else th
     if line > MAX_LINE:
         raise ValueError(f"take_along: a {th}x{tw} tile gathers along "
-                         f"{line} positions on axis {axis}; the kernel "
-                         f"holds at most {MAX_LINE}")
+                         f"{line} positions on axis {axis}; a line holds "
+                         f"at most {MAX_LINE}")
     return tiles, th, tw
 
 
@@ -96,10 +103,10 @@ def take_along(p: torch.Tensor, idx: torch.Tensor, reps: int, axis: int,
     f32 operand ``p`` at the i32 indices ``idx`` (one shape), in tiles of
     ``tile_rows`` rows (default: one tile). CPU tensors take the plain
     version; CUDA tensors launch the kernel (on the current stream) or
-    raise."""
+    raise. Both are checked first (``_check``)."""
+    tiles, th, tw = _check(p, idx, reps, axis, tile_rows)
     if p.device.type == "cpu":
         return take_along_plain(p, idx, reps, axis, tile_rows)
-    tiles, th, tw = _check(p, idx, reps, axis, tile_rows)
     out = torch.empty_like(p)
     with torch.cuda.device(p.device):
         rc = _library()(p.data_ptr(), idx.data_ptr(), out.data_ptr(), tiles,

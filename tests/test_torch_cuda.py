@@ -39,6 +39,11 @@ from hector_slam_tpu_torch.ops import take_along as ta
 
 TOL = 1e-5
 MM_ULPS = 2
+# matmul_stationary's chain at the probe's operand scales: every value
+# denormal, and at least 2 smallest-denormal steps above 0 (from ~200 reps
+# on the plain version's chain sits at the smallest bf16 denormal, 2^-133:
+# 0.64 of it rounds up to it, so a flush to 0 would read only 1 ulp there)
+MM_DENORMAL_REPS = 195
 
 
 @pytest.fixture
@@ -401,15 +406,39 @@ def test_take_along_keeps_the_tiny_term_on_card(cuda_device, case, axis):
 
 @pytest.mark.cuda
 def test_take_along_refuses_a_long_line_on_card(cuda_device):
-    p = torch.zeros(2, 257, device=cuda_device)
-    idx = torch.zeros(2, 257, dtype=torch.int32, device=cuda_device)
+    """A line past MAX_LINE is refused before any launch, as on the
+    CPU."""
+    n = ta.MAX_LINE + 1
+    p = torch.zeros(2, n, device=cuda_device)
+    idx = torch.zeros(2, n, dtype=torch.int32, device=cuda_device)
     before = ta.take_along.launches
-    with pytest.raises(ValueError, match="at most 256"):
+    with pytest.raises(ValueError, match=f"at most {ta.MAX_LINE}"):
         ta.take_along(p, idx, 1, 1)
     assert ta.take_along.launches == before
     # the other axis is 2 long: any number of lines is taken
     assert torch.equal(ta.take_along(p, idx, 3, 0),
                        ta.take_along_plain(p, idx, 3, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("line", [257, 1024, ta.MAX_LINE])
+@pytest.mark.parametrize("axis", [1, 0])
+def test_take_along_long_lines_match_plain_on_card(cuda_device, line, axis):
+    """Lines longer than a warp's 256 (the kernel's block path) up to
+    MAX_LINE, on both axes, in 3 tiles (tiles 1 and 2 recompute tile 0's
+    line beside their own): equal to the plain version at reps 0, 1, 13
+    and 300 (past 257 the gathered position wraps the line), indices
+    beyond the axis and negative."""
+    rng = np.random.default_rng(44)
+    th, tw = (2, line) if axis == 1 else (line, 3)
+    shape = (3 * th, tw)
+    p = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(cuda_device)
+    idx = torch.from_numpy(rng.integers(-2 * line, 3 * line, shape).astype(
+        np.int32)).to(cuda_device)
+    for r in (0, 1, 13, 300):
+        got = _counted(ta.take_along, p, idx, r, axis, th)
+        assert torch.equal(got, ta.take_along_plain(p, idx, r, axis, th))
+        assert torch.equal(got, ta.take_along(p, idx, r, axis, th))
 
 
 @pytest.mark.cuda
@@ -455,23 +484,29 @@ def test_dyn_slice_keeps_the_sum_order_on_card(cuda_device, mode):
                                                 mode))
 
 
+def _probe_runs(dev, rng, n, h=1024, w=1024):
+    """n runs drawn as tools/probe_mosaic_store.py draws them."""
+    lo = rng.integers(0, 120, n)
+    return [torch.from_numpy(c.astype(np.int32)).to(dev) for c in (
+        rng.integers(0, h, n), rng.integers(0, w // 128, n) * 128, lo,
+        np.minimum(lo + rng.integers(0, 8, n), 127))]
+
+
 @pytest.mark.cuda
 def test_paint_runs_matches_plain_on_card(cuda_device):
     """16,384 runs on 1024^2, the probe's workload: grids exactly equal,
-    a second launch bit-identical, the bare launch counted too; a run off
-    its aligned segment is refused before any launch."""
+    a second launch bit-identical, one launch per call (the kernel zeroes
+    the grid itself), the bare launch counted too and writing every cell
+    of a grid that held NaN; a run off its aligned segment is refused
+    before any launch."""
     rng = np.random.default_rng(39)
-    n = 16 * 1024
-    lo = rng.integers(0, 120, n)
-    runs = [torch.from_numpy(c.astype(np.int32)).to(cuda_device) for c in (
-        rng.integers(0, 1024, n), rng.integers(0, 8, n) * 128, lo,
-        np.minimum(lo + rng.integers(0, 8, n), 127))]
+    runs = _probe_runs(cuda_device, rng, 16 * 1024)
     got = _counted(pr.paint_runs, *runs, (1024, 1024))
     assert torch.equal(got, pr.paint_runs_plain(*runs, (1024, 1024)))
     assert torch.equal(got, pr.paint_runs(*runs, (1024, 1024)))
     assert 0 < int(got.sum()) <= int((runs[3] - runs[2] + 1).sum())
     before = pr.paint_runs.launches
-    grid = torch.zeros((1024, 1024), device=cuda_device)
+    grid = torch.full((1024, 1024), float("nan"), device=cuda_device)
     pr._launch(*runs, grid)
     assert pr.paint_runs.launches == before + 1 and torch.equal(grid, got)
     before = pr.paint_runs.launches
@@ -482,20 +517,70 @@ def test_paint_runs_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [16, 8192])
+@pytest.mark.parametrize("shape,n", [((1024, 1024), 4096), ((3, 384), 5000),
+                                     ((1, 128), 0), ((1000, 256), 1)])
+def test_paint_runs_one_segment_and_odd_grids_on_card(cuda_device, shape, n):
+    """Every run on one [1, 128] segment (row 1 % h, c0 = 128 % w: all
+    stores to the same few lines), grids whose cell count is not a
+    multiple of 4 or of the threads, no runs at all: exactly the plain
+    version, one launch per call."""
+    h, w = shape
+    rng = np.random.default_rng(45)
+    lo = rng.integers(0, 128, n)
+    runs = [torch.from_numpy(c.astype(np.int32)).to(cuda_device) for c in (
+        np.full(n, 1 % h), np.full(n, 128 % w), lo,
+        np.minimum(lo + rng.integers(0, 8, n), 127))]
+    got = _counted(pr.paint_runs, *runs, shape)
+    assert torch.equal(got, pr.paint_runs_plain(*runs, shape))
+    assert torch.equal(got, pr.paint_runs(*runs, shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [16, 80, 8192])
 def test_matmul_stationary_matches_plain_on_card(cuda_device, m):
     """The probe's operands (a ~ U(0, 0.1), w ~ U(0, 0.01)) at reps 0, 1,
-    8 and 64 (before the chain underflows): within MM_ULPS bf16 ulps of
-    the plain version, a second launch bit-identical."""
+    8, 64 and MM_DENORMAL_REPS (every value denormal), m a whole number of
+    64-row tiles or not (16, 80): within MM_ULPS bf16 ulps of the plain
+    version, a second launch bit-identical."""
     rng = np.random.default_rng(40)
     a = torch.from_numpy((rng.random((m, 128)) * 0.1).astype(
         np.float32)).to(cuda_device).to(torch.bfloat16)
     w = torch.from_numpy((rng.random((128, 128)) * 0.01).astype(
         np.float32)).to(cuda_device).to(torch.bfloat16)
-    for reps in (0, 1, 8, 64):
+    for reps in (0, 1, 8, 64, MM_DENORMAL_REPS):
         got = _counted(mms.matmul_stationary, a, w, reps)
         want = mms.matmul_stationary_plain(a, w, reps)
         assert float(mms.bf16_ulps(got, want).max()) <= MM_ULPS
         assert torch.equal(got, mms.matmul_stationary(a, w, reps))
+    assert float(want.abs().max()) < 2.0 ** -126
+    assert float(want.abs().min()) >= 2 * 2.0 ** -133
     with pytest.raises(ValueError):
         mms.matmul_stationary(a[:, :64].contiguous(), w, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 4])
+def test_matmul_stationary_takes_unaligned_operands_on_card(cuda_device,
+                                                            offset):
+    """a and w as views ``offset`` bf16 (2 or 8 bytes) into larger buffers,
+    so neither starts on a 16-byte boundary: the same result as the same
+    values at aligned addresses, within MM_ULPS of the plain version, and
+    the views left unchanged."""
+    rng = np.random.default_rng(41)
+    m, reps = 80, 8
+    vals = [torch.from_numpy((rng.random(shape) * scale).astype(
+        np.float32)).to(cuda_device).to(torch.bfloat16)
+        for shape, scale in (((m, 128), 0.1), ((128, 128), 0.01))]
+    views = []
+    for v in vals:
+        buf = torch.zeros(v.numel() + offset, dtype=torch.bfloat16,
+                          device=cuda_device)
+        buf[offset:] = v.reshape(-1)
+        views.append(buf[offset:].view(v.shape))
+    a, w = views
+    assert a.data_ptr() % 16 and w.data_ptr() % 16
+    got = _counted(mms.matmul_stationary, a, w, reps)
+    assert torch.equal(got, mms.matmul_stationary(*vals, reps))
+    want = mms.matmul_stationary_plain(*vals, reps)
+    assert float(mms.bf16_ulps(got, want).max()) <= MM_ULPS
+    assert all(torch.equal(x, v) for x, v in zip(views, vals))

@@ -143,13 +143,41 @@ def test_take_along_tiny_term_changes_the_result(probe_pallas, case, axis):
     assert not torch.equal(short, got)
 
 
+@pytest.mark.parametrize("shape,axis", [((4, 1024), 1), ((1024, 4), 0)])
+def test_take_along_long_lines_equal_gather_big(probe_pallas, shape, axis):
+    """Lines of 1024 positions (longer than a warp's 256, the card's block
+    path) on each axis, 3 reps: the plain version equals the probe in
+    interpret mode."""
+    rng = np.random.default_rng(71 + axis)
+    p = rng.random(shape, dtype=np.float32)
+    idx = rng.integers(0, shape[axis], shape).astype(np.int32)
+    f, _ = probe_pallas.gather_big(shape, axis)(3)
+    want = _np(f(jnp.asarray(p), jnp.asarray(idx)))
+    got = ta.take_along_plain(torch.from_numpy(p), torch.from_numpy(idx), 3,
+                              axis)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_take_along_refuses_lines_longer_than_a_warp_holds():
-    """The kernel holds a line of the gathered axis in one warp (at most
-    MAX_LINE positions); the number of lines is free."""
-    idx = torch.zeros(4, 257, dtype=torch.int32)
-    with pytest.raises(ValueError, match="at most 256"):
-        ta._check(torch.zeros(4, 257), idx, 1, 1, None)
-    assert ta._check(torch.zeros(4, 257), idx, 1, 0, 2) == (2, 2, 257)
+    """A line of the gathered axis is held on one SM of the card (a warp
+    up to 256 positions, a block's shared memory up to MAX_LINE): the
+    wrapper takes lines up to MAX_LINE and refuses a longer one on the CPU
+    tensor as on the card, before any work; the number of lines is
+    free."""
+    assert ta.MAX_LINE == 8192
+    for shape, axis, tile_rows in (((2, 8192), 1, None),
+                                   ((2 * 8192, 2), 0, 8192)):
+        p = torch.ones(shape)
+        idx = torch.zeros(shape, dtype=torch.int32)
+        assert torch.equal(ta.take_along(p, idx, 1, axis, tile_rows),
+                           torch.ones(shape))
+    for shape, axis in (((2, 8193), 1), ((8193, 2), 0)):
+        p = torch.zeros(shape)
+        idx = torch.zeros(shape, dtype=torch.int32)
+        with pytest.raises(ValueError, match="at most 8192"):
+            ta.take_along(p, idx, 1, axis)
+    idx = torch.zeros(4, 8193, dtype=torch.int32)
+    assert ta._check(torch.zeros(4, 8193), idx, 1, 0, 2) == (2, 2, 8193)
     assert ta._check(torch.zeros(8192, 256), torch.zeros(
         8192, 256, dtype=torch.int32), 1, 1, None) == (1, 8192, 256)
 

@@ -14,10 +14,14 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
 from hector_slam_tpu.config import BENCH_CONFIG as JCFG
+from hector_slam_tpu.config import MapConfig as JMapConfig
+from hector_slam_tpu.config import SlamConfig as JSlamConfig
 from hector_slam_tpu.core.slam import init_state as j_init, run_log_jit
 from hector_slam_tpu.io.scanlog import (scan_from_ranges as j_scan,
                                         stack_scans as j_stack)
+from hector_slam_tpu.types import Scan as JScan
 
 import hector_slam_tpu_torch as ht
 from tools.make_torch_reference import FIXTURE, REFERENCE, jax_reference
@@ -78,6 +82,37 @@ def test_fixture_prefix_matches_jax(jax_replay, port_scans):
     rmse = _rmse(poses.numpy(), want)
     assert rmse < 0.005, rmse
     assert state.step.item() == PREFIX
+
+
+def test_empty_log_returns_what_jax_returns():
+    """A log of zero scans: the port's run_log returns the state
+    unchanged, poses f32[0, 3] and length-0 metrics, field by field in
+    shape and dtype as run_log_jit does."""
+    cfg = ht.SlamConfig(map=ht.MapConfig(resolution=0.05, size_x=64,
+                                         size_y=64, levels=2),
+                        max_ray_cells=64)
+    jcfg = JSlamConfig(map=JMapConfig(resolution=0.05, size_x=64, size_y=64,
+                                      levels=2), max_ray_cells=64)
+    mb = cfg.max_beams
+    assert jcfg.max_beams == mb
+    jscans = JScan(jnp.zeros((0, mb, 2), jnp.float32),
+                   jnp.zeros((0, 2), jnp.float32), jnp.zeros((0, mb), bool))
+    jstate, jposes, jmetrics = run_log_jit(j_init(jcfg), jscans, jcfg)
+    state0 = ht.init_state(cfg, device="cpu")
+    scans = ht.scan_from_numpy(np.zeros((0, mb, 2), np.float32),
+                               np.zeros((0, 2), np.float32),
+                               np.zeros((0, mb), bool), device="cpu")
+    state, poses, metrics = ht.run_log(state0, scans, cfg)
+    assert state is state0
+    for name in ("pose", "last_map_update_pose", "covariance", "step",
+                 "map_update_count"):
+        np.testing.assert_array_equal(getattr(state, name).numpy(),
+                                      np.asarray(getattr(jstate, name)))
+    for got, want in [(poses, jposes), *zip(metrics, jmetrics)]:
+        want = np.asarray(want)
+        assert tuple(got.shape) == want.shape
+        assert got.numpy().dtype == want.dtype
+    assert metrics._fields == jmetrics._fields
 
 
 def test_state_carried_across_from_jax(jax_replay, port_scans):
