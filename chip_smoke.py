@@ -20,29 +20,44 @@ the main path through the entry points a user calls:
      (tests/fixtures/corridor_jax_reference.npz): every gate equal, equal
      update counts, pose RMSE < 5 mm; one paint launch per gated update
      (its six cell sets in one table);
-  5. batched matching — the bench.py workload: a map built with known
+  5. session — the SlamSession entry point on the same fixture, stamps
+     t x 0.025 s: session A (timing_mode "step") through process_ranges,
+     poses bit-equal to run_log's, gates and RMSE as in 4, one paint
+     launch per gated update; session B ("phases", 100 scans) bit-equal
+     to A; A kidnapped by (+0.6 m, -0.5 m, +0.25 rad) and recovered by
+     relocalize (n = 1024: "quad", then the default "pallas" — prune,
+     cascade, 14 moments launches) and relocalize_global (defaults, 14
+     launches), each within 0.1 m and 0.05 rad of the pose before the
+     kidnap and held against the JAX session's results
+     (tests/fixtures/session_jax_reference.npz, written by
+     tools/make_torch_session_reference.py): acceptance equal, kidnap
+     winners within 5 mm and 0.005 rad, equal free-cell counts; the
+     global sweep's peak device memory; a geotiff written; then each
+     recovery timed again, warm, from the kidnapped state (after the
+     path's launch counts were read);
+  6. batched matching — the bench.py workload: a map built with known
      poses, 4096 hypotheses (sigma 0.05) matched through
      match_hypotheses_kernel (14 kernel launches per call), a
      256-hypothesis subset held against the plain batched matcher;
-  6. fleet — fleet_step with 64 robots, a BENCH_CONFIG pyramid each, every
+  7. fleet — fleet_step with 64 robots, a BENCH_CONFIG pyramid each, every
      robot on its own simulated corridor trajectory, 25 steps: robots 0,
      21, 42 and 63 replayed alone through slam_step must agree bit for bit
      (gates, poses, every level's map); steps/s over steps 1-24 (step 0,
      from empty maps, is an untimed warm-up); one paint launch per update;
-  7. shared fleet — shared_fleet_step with 64 robots in one BENCH_CONFIG
+  8. shared fleet — shared_fleet_step with 64 robots in one BENCH_CONFIG
      pyramid, replaying the committed JAX reference's 16 steps
      (tests/fixtures/shared_fleet_jax_reference.npz, written by
      tools/make_torch_fleet_reference.py): gates equal for every robot
      and step, equal update counts, pose RMSE < 1e-4 m, each level's
      counts of cells > 0 and < 0 equal; steps/s over steps 1-15; one
      paint launch per update;
-  8. paint vs plain — paint_cell_sets at the probe's own workload (1024^2,
+  9. paint vs plain — paint_cell_sets at the probe's own workload (1024^2,
      65,536 random cells) and at one update of each of the three
      map-update paths above (its six cell sets): grids exactly equal to
      the plain version's, two launches bit-identical, and the update's
      time as one call (one fill, one launch) and as six one-set calls,
      beside the plain version's, index_put_'s and the bytes bound;
-  9. probes — the cost probes of tools/probe_pallas.py and
+ 10. probes — the cost probes of tools/probe_pallas.py and
      tools/probe_mosaic_store.py at their own shapes, driven through
      hector_slam_tpu_torch.probes (take_along over 64 [8,128] tiles on both
      axes and on the four one-tile operands, matmul_stationary
@@ -63,7 +78,7 @@ the main path through the entry points a user calls:
      version; then a paint_runs_split line (probes.store_split: the
      kernel's launch and grid barrier alone, + its fill, + its runs, and
      a torch.zeros fill alone);
- 10. the kernels line: per kernel, its launches on the main path (each
+ 11. the kernels line: per kernel, its launches on the main path (each
      path, the probes included, is driven with the counts set to 0 just
      before it and read just after), its largest error against the plain
      version, its time, the plain version's and the library call's time,
@@ -98,6 +113,15 @@ SHARED_RMSE_M = 1e-4    # port vs JAX pose RMSE, shared fleet (see its tests)
 FLEET_ROBOTS = 64       # BASELINE config 5: 64 parallel trajectories
 FLEET_STEPS = 25        # one untimed warm-up step, then 24 timed
 FLEET_CHECKED = (0, 21, 42, 63)   # replayed alone through slam_step
+# the session phase's scenario (tools/make_torch_session_reference.py)
+SESSION_STAMP_S = 0.025
+SESSION_PHASES_SCANS = 100      # session B, timing_mode="phases"
+KIDNAP = np.asarray([0.6, -0.5, 0.25], np.float32)
+RELOCALIZE = dict(n_hypotheses=1024, sigma_xy=0.6, sigma_theta=0.3, seed=3)
+RECOVERED_M, RECOVERED_RAD = 0.1, 0.05        # recovery bars (test_session)
+JAX_WINNER_M, JAX_WINNER_RAD = 0.005, 0.005   # card vs JAX kidnap winner
+QUAD_RESIDUAL_REL = 0.1   # "quad" vs "pallas" winner residual (test_session)
+RECOVERY_WARM_CALLS = 3   # timed repeats of each recovery, after the checks
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 non-tensor FLOP/s
 # and dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -365,9 +389,194 @@ def phase_sequential(kernels):
     # one gated update's paint inputs: a mid-log scan at its matched pose
     gated = np.flatnonzero(gates)
     t = int(gated[len(gated) // 2])
-    return launches, (torch.from_numpy(poses[t]).to(scans.points.device),
-                      ht.Scan(scans.points[t], scans.origo[t],
-                              scans.mask[t]))
+    return launches, poses, (torch.from_numpy(poses[t]).to(
+        scans.points.device), ht.Scan(scans.points[t], scans.origo[t],
+                                      scans.mask[t]))
+
+
+def yaw_err(a, b) -> float:
+    d = float(a) - float(b)
+    return abs(float(np.arctan2(np.sin(d), np.cos(d))))
+
+
+def timed_call(fn):
+    """(result, ms) of one call on the host clock, up to the device's
+    completion."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_session(kernels, run_log_poses):
+    """The SlamSession entry point on the corridor fixture at BENCH_CONFIG:
+    session A replays all scans through process_ranges ("step"), session
+    B the first SESSION_PHASES_SCANS ("phases"); then A is kidnapped and
+    recovered by relocalize ("quad", then the default "pallas": prune,
+    cascade, 14 moments launches) and by relocalize_global (14 launches),
+    each held against tests/fixtures/session_jax_reference.npz; then the
+    geotiff export. Returns the path's launches."""
+    import tempfile
+
+    import hector_slam_tpu_torch as ht
+    from hector_slam_tpu_torch.export.images import read_png_size
+    ref = np.load(ROOT / "tests" / "fixtures" / "session_jax_reference.npz")
+    seq = np.load(ROOT / "tests" / "fixtures" / "corridor_jax_reference.npz")
+    ranges, laser, _ = ht.load_log(
+        str(ROOT / "tests" / "fixtures" / "corridor_utm30lx.npz"))
+    cfg = ht.BENCH_CONFIG
+    gates = np.zeros(len(ranges), bool)
+    scan_index = [0]
+
+    def gated(_):
+        gates[scan_index[0]] = True
+
+    a = ht.SlamSession(cfg, laser, on_map_update=gated)
+    b = ht.SlamSession(cfg, laser, timing_mode="phases")
+    reset_counts(kernels)
+    marks = [read_counts(kernels)]
+    poses_a = []
+    for t, r in enumerate(ranges):
+        scan_index[0] = t
+        poses_a.append(a.process_ranges(r, stamp=t * SESSION_STAMP_S))
+    poses_a = np.stack(poses_a)
+    marks.append(read_counts(kernels))
+    poses_b = np.stack([b.process_ranges(r, stamp=t * SESSION_STAMP_S)
+                        for t, r in enumerate(
+                            ranges[:SESSION_PHASES_SCANS])])
+    marks.append(read_counts(kernels))
+
+    good = a.pose.copy()
+    kidnapped = a.state._replace(pose=torch.from_numpy(
+        good + KIDNAP).to(a.device))
+    a.state = kidnapped
+    quad, quad_ms = timed_call(lambda: a.relocalize(method="quad",
+                                                    **RELOCALIZE))
+    marks.append(read_counts(kernels))
+    a.state = kidnapped
+    pallas, pallas_ms = timed_call(lambda: a.relocalize(**RELOCALIZE))
+    marks.append(read_counts(kernels))
+    p_next = a.process_ranges(ranges[-1])
+    marks.append(read_counts(kernels))
+    a.state = kidnapped
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    glob, glob_ms = timed_call(a.relocalize_global)
+    peak_mem = torch.cuda.max_memory_allocated()
+    marks.append(read_counts(kernels))
+    with tempfile.TemporaryDirectory() as tmp:
+        png, tfw = a.save_geotiff(str(Path(tmp) / "session_map"))
+        png_size = read_png_size(png)
+        tfw_lines = Path(tfw).read_text().split()
+    extends = ht.map_extends(a.occupancy_grid())
+    launches = read_counts(kernels)
+    # each recovery again from the kidnapped state, warm (the first calls
+    # above include the first use of their torch ops in this process)
+    warm_ms = {}
+    for name, fn in (
+            ("quad", lambda: a.relocalize(method="quad", **RELOCALIZE)),
+            ("pallas", lambda: a.relocalize(**RELOCALIZE)),
+            ("global", a.relocalize_global)):
+        warm_ms[name] = []
+        for _ in range(RECOVERY_WARM_CALLS):
+            a.state = kidnapped
+            warm_ms[name].append(timed_call(fn)[1])
+
+    def delta(i, name):
+        return marks[i + 1][name] - marks[i][name]
+
+    rmse = float(np.sqrt(np.mean((poses_a[:, :2] - seq["poses"][:, :2])
+                                 ** 2)))
+    stats_a, stats_b = a.timing_stats(), b.timing_stats()
+    recov = {}
+    for name, out in (("quad", quad), ("pallas", pallas), ("global", glob)):
+        recov[name] = dict(
+            accepted=out["accepted"], pose=out["pose"].tolist(),
+            residual=out["residual"],
+            err_m=float(np.linalg.norm(out["pose"][:2] - good[:2])),
+            err_rad=yaw_err(out["pose"][2], good[2]),
+            fast_path_fraction=out["fast_path_fraction"])
+    for name, out in (("quad", quad), ("pallas", pallas)):
+        recov[name]["vs_jax_m"] = float(np.linalg.norm(
+            out["pose"][:2] - ref["relocalize_pose"][:2]))
+        recov[name]["vs_jax_rad"] = yaw_err(out["pose"][2],
+                                            ref["relocalize_pose"][2])
+    recov["global"]["vs_jax_m"] = float(np.linalg.norm(
+        glob["pose"][:2] - ref["global_pose"][:2]))
+    checks = {
+        "a_bit_equal_run_log": bool(np.array_equal(poses_a, run_log_poses)),
+        "a_gates_equal_jax": bool((gates == seq["map_updated"]).all()),
+        "a_update_count": int(a.state.map_update_count) == int(
+            seq["map_update_count"]) == int(ref["map_update_count"]),
+        "a_rmse": rmse < RMSE_BUDGET_M,
+        "a_paint_per_update": delta(0, "paint_cells") == int(gates.sum())
+        and delta(0, "interp_moments") == 0,
+        "b_bit_equal_a": bool(np.array_equal(
+            poses_b, poses_a[:SESSION_PHASES_SCANS])),
+        "recovered": all(v["accepted"] and v["err_m"] < RECOVERED_M
+                         and v["err_rad"] < RECOVERED_RAD
+                         for v in recov.values()),
+        "quad_residual": abs(quad["residual"] - pallas["residual"])
+        < QUAD_RESIDUAL_REL * max(pallas["residual"], 1.0),
+        "moments_launches": delta(2, "interp_moments") == 0
+        and delta(3, "interp_moments") == 14
+        and delta(5, "interp_moments") == 14,
+        "fast_path": pallas["fast_path_fraction"] == 1.0
+        and glob["fast_path_fraction"] == 1.0,
+        "tracks_after": float(np.linalg.norm(p_next[:2] - good[:2]))
+        < RECOVERED_M,
+        "jax_accepted": quad["accepted"] == bool(ref["relocalize_accepted"])
+        and pallas["accepted"] == bool(ref["relocalize_accepted"])
+        and glob["accepted"] == bool(ref["global_accepted"]),
+        "jax_winner": all(recov[n]["vs_jax_m"] < JAX_WINNER_M
+                          and recov[n]["vs_jax_rad"] < JAX_WINNER_RAD
+                          for n in ("quad", "pallas")),
+        "jax_n_free_cells": glob["n_free_cells"] == int(
+            ref["global_n_free_cells"]),
+        "geotiff": png_size[0] > 0 and png_size[1] > 0 and len(tfw_lines)
+        == 6,
+        "finite": bool(np.isfinite(poses_a).all()
+                       and np.isfinite(poses_b).all()),
+    }
+    ok = all(checks.values())
+    emit("session", ok=ok, checks=checks, scans=len(ranges),
+         phases_scans=SESSION_PHASES_SCANS, pose_rmse_m=rmse,
+         gate_agreement=int((gates == seq["map_updated"]).sum()),
+         map_update_count=int(a.state.map_update_count),
+         ms_per_scan_p50=stats_a["p50_ms"],
+         ms_per_scan_mean=stats_a["mean_ms"],
+         ms_per_scan_p95=stats_a["p95_ms"],
+         phases_ms_per_scan_p50=stats_b["p50_ms"],
+         match_p50_ms=stats_b["match_p50_ms"],
+         update_p50_ms=stats_b["update_p50_ms"],
+         match_mean_ms=stats_b["match_mean_ms"],
+         update_mean_ms=stats_b["update_mean_ms"],
+         relocalize_quad_ms=quad_ms, relocalize_pallas_ms=pallas_ms,
+         relocalize_global_ms=glob_ms, recovery_warm_ms=warm_ms,
+         recovery_warm_median_ms={k: float(np.median(v))
+                                  for k, v in warm_ms.items()},
+         recoveries=recov,
+         good_pose=good.tolist(), jax_good_pose=ref["good_pose"].tolist(),
+         good_vs_jax_m=float(np.linalg.norm(good[:2]
+                                            - ref["good_pose"][:2])),
+         jax_relocalize_pose=ref["relocalize_pose"].tolist(),
+         jax_global_pose=ref["global_pose"].tolist(),
+         n_free_cells=glob["n_free_cells"],
+         jax_n_free_cells=int(ref["global_n_free_cells"]),
+         sweep_best_residual=glob["sweep_best_residual"],
+         global_peak_mem_bytes=peak_mem,
+         global_peak_mem_above_state_bytes=peak_mem - base_mem,
+         map_extends=extends, geotiff_png_size=list(png_size),
+         kernel_launches=launches, launches_by_step={
+             step: {k: delta(i, k) for k in kernels} for i, step in
+             enumerate(("session_a", "session_b", "relocalize_quad",
+                        "relocalize_pallas", "track_after",
+                        "relocalize_global"))})
+    if not ok:
+        raise SystemExit("the session failed its checks: " + ", ".join(
+            k for k, v in checks.items() if not v))
+    return launches
 
 
 def phase_batched(dev, kernels):
@@ -867,8 +1076,10 @@ def run_paths(dev):
                "dyn_slice": dyn_slice, "paint_runs": paint_runs}
     abs_kvp = phase_kernel_vs_plain(dev)
     paths, paint_inputs = {}, {}
-    paths["sequential"], (pose, scan) = phase_sequential(kernels)
+    paths["sequential"], run_log_poses, (pose, scan) = phase_sequential(
+        kernels)
     paint_inputs["sequential"] = ("single", pose, scan)
+    paths["session"] = phase_session(kernels, run_log_poses)
     paths["batched"], levels, abs_main = phase_batched(dev, kernels)
     paths["fleet"], (poses, scans) = phase_fleet(kernels)
     paint_inputs["fleet"] = ("per_robot", poses, scans)

@@ -15,13 +15,24 @@ from .convert import fleet_state_from_numpy, scan_from_numpy, state_from_numpy
 from .core.mapping import update_pyramid
 from .core.matcher import match_level, match_pyramid
 from .core.slam import init_state, run_log, slam_step
-from .io.scanlog import LaserModel, load_log, scan_from_ranges, stack_scans
+from .export.geotiff import GeotiffExporter, write_geotiff
+from .export.images import map_tile_image, map_to_image, write_pgm, write_png
+from .export.occupancy import (GridMeta, grid_meta, map_extends,
+                               to_occupancy_grid, to_occupancy_grid_tensor)
+from .export.pose_output import (covariance_6x6, covariance_world_coords,
+                                 pose_stamped, quaternion_to_yaw,
+                                 yaw_to_quaternion)
+from .export.trajectory import RecoveryInfo, TrajectoryRecorder
+from .io.scanlog import (LaserModel, load_log, save_log, scan_from_points,
+                         scan_from_ranges, stack_scans)
 from .ops.interp_moments import interp_moments, interp_moments_plain
 from .ops.paint_cells import paint_cells, paint_cells_plain
 from .parallel.batch import (best_hypothesis, fleet_step, init_fleet,
                              match_hypotheses, residual_for_poses)
 from .parallel.kernel_match import MatchDiag, match_hypotheses_kernel
+from .parallel.recovery import auto_prune_top_k, prune_hypotheses_coarse
 from .parallel.shared_map import init_shared_fleet, shared_fleet_step
+from .session import SlamSession
 from .types import MatchResult, Scan, SlamState, StepMetrics
 
 __all__ = [
@@ -32,11 +43,20 @@ __all__ = [
     "fleet_state_from_numpy", "scan_from_numpy", "state_from_numpy",
     "update_pyramid", "match_level", "match_pyramid",
     "init_state", "run_log", "slam_step",
-    "LaserModel", "load_log", "scan_from_ranges", "stack_scans",
+    "GeotiffExporter", "write_geotiff",
+    "map_tile_image", "map_to_image", "write_pgm", "write_png",
+    "GridMeta", "grid_meta", "map_extends", "to_occupancy_grid",
+    "to_occupancy_grid_tensor",
+    "covariance_6x6", "covariance_world_coords", "pose_stamped",
+    "quaternion_to_yaw", "yaw_to_quaternion",
+    "RecoveryInfo", "TrajectoryRecorder",
+    "LaserModel", "load_log", "save_log", "scan_from_points",
+    "scan_from_ranges", "stack_scans",
     "interp_moments", "interp_moments_plain",
     "paint_cells", "paint_cells_plain",
     "best_hypothesis", "fleet_step", "init_fleet", "match_hypotheses",
     "residual_for_poses", "init_shared_fleet", "shared_fleet_step",
     "MatchDiag", "match_hypotheses_kernel",
+    "auto_prune_top_k", "prune_hypotheses_coarse", "SlamSession",
     "MatchResult", "Scan", "SlamState", "StepMetrics",
 ]

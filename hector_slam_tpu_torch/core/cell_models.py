@@ -101,3 +101,28 @@ def apply_update(storage: torch.Tensor, free_only: torch.Tensor,
         reflected = storage[..., 1, :, :] + occ_set.to(f32)
         return torch.stack([visited, reflected], dim=-3)
     raise ValueError(f"unknown cell model {model!r}")
+
+
+def is_occupied(storage: torch.Tensor, model: str) -> torch.Tensor:
+    """isOccupied per cell model (GridMapLogOdds.h:76-80: log-odds > 0;
+    probability models: prob > 0.5)."""
+    if model == LOG_ODDS:
+        return storage > 0.0
+    if model == SIMPLE_COUNT:
+        return storage > 0.5
+    if model == REFLECTANCE:
+        return reflectance_prob_grid(storage) > 0.5
+    raise ValueError(model)
+
+
+def is_free(storage: torch.Tensor, model: str) -> torch.Tensor:
+    """isFree per cell model (GridMapLogOdds.h:81-85: log-odds < 0;
+    reflectance: prob < 0.5 on a visited cell)."""
+    if model == LOG_ODDS:
+        return storage < 0.0
+    if model == SIMPLE_COUNT:
+        return storage < 0.5
+    if model == REFLECTANCE:
+        p = reflectance_prob_grid(storage)
+        return (p < 0.5) & (storage[..., 0, :, :] > 0.0)
+    raise ValueError(model)

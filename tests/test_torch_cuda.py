@@ -584,3 +584,68 @@ def test_matmul_stationary_takes_unaligned_operands_on_card(cuda_device,
     want = mms.matmul_stationary_plain(*vals, reps)
     assert float(mms.bf16_ulps(got, want).max()) <= MM_ULPS
     assert all(torch.equal(x, v) for x, v in zip(views, vals))
+
+
+@pytest.mark.cuda
+def test_recovery_selection_on_card_matches_cpu(cuda_device):
+    """The recovery's selections on CUDA tensors pick what they pick on
+    the CPU: ties by lower index, NaN after every number (the stable
+    sort), and the first NaN for the row argmin."""
+    from hector_slam_tpu_torch.parallel import recovery as rec
+    rng = np.random.default_rng(43)
+    s = rng.integers(0, 6, 1024).astype(np.float32)
+    s[[3, 133, 700]] = np.nan
+    hyp = np.arange(1024 * 3, dtype=np.float32).reshape(1024, 3)
+    for k in (256, 100):
+        got = rec._select_top(torch.from_numpy(hyp).to(cuda_device),
+                              torch.from_numpy(s).to(cuda_device), k)
+        want = rec._select_top(torch.from_numpy(hyp), torch.from_numpy(s), k)
+        assert torch.equal(got.cpu(), want)
+    rows = torch.from_numpy(s.reshape(8, 128))
+    assert torch.equal(rec._argmin_first(rows.to(cuda_device)).cpu(),
+                       rec._argmin_first(rows))
+
+
+@pytest.mark.cuda
+def test_session_relocalize_on_card_matches_cpu(cuda_device):
+    """A kidnapped session on the card recovers through the moments kernel
+    (prune, cascade: 4 + 6 launches on two levels) as the same session on
+    the CPU does through the kernel's plain version: the same acceptance,
+    winners within 5 mm and 0.005 rad."""
+    from hector_slam_tpu_torch.io.simulator import corridor_trajectory
+    cfg = ht.SlamConfig(map=ht.MapConfig(resolution=0.05, size_x=256,
+                                         size_y=256, levels=2),
+                        max_beams=192, max_ray_cells=256)
+    laser = ht.LaserModel(num_beams=181, angle_min=-1.57,
+                          angle_increment=np.pi / 180, range_min=0.1,
+                          range_max=8.0)
+    ranges = simulate_trajectory(World.corridor(length=10.0, width=3.0),
+                                 corridor_trajectory(20, advance=0.05,
+                                                     weave=0.02),
+                                 laser, range_noise_std=0.003)
+    card = ht.SlamSession(cfg, laser)
+    for r in ranges:
+        card.process_ranges(r)
+    cpu = ht.SlamSession(cfg, laser, device="cpu")
+    cpu.state = ht.state_from_numpy(
+        [lo.cpu().numpy() for lo in card.state.log_odds], card.pose,
+        card.state.last_map_update_pose.cpu().numpy(), card.covariance,
+        int(card.state.step), int(card.state.map_update_count), cfg,
+        device="cpu")
+    good = card.pose.copy()
+    shift = np.asarray([0.6, -0.5, 0.25], np.float32)
+    card.state = card.state._replace(pose=torch.from_numpy(
+        good + shift).to(cuda_device))
+    cpu.state = cpu.state._replace(pose=torch.from_numpy(good + shift))
+    kw = dict(n_hypotheses=1024, sigma_xy=0.6, sigma_theta=0.3, seed=3,
+              method="pallas")
+    before = im.interp_moments.launches
+    got = card.relocalize(**kw)
+    assert im.interp_moments.launches - before == 10
+    want = cpu.relocalize(scan=ht.scan_from_ranges(
+        ranges[-1], cfg.map.level_scale(0), laser, cfg.max_beams,
+        device="cpu"), **kw)
+    assert got["accepted"] and want["accepted"]
+    assert np.linalg.norm(got["pose"][:2] - want["pose"][:2]) < 5e-3
+    assert abs(float(got["pose"][2] - want["pose"][2])) < 5e-3
+    assert np.linalg.norm(got["pose"][:2] - good[:2]) < 0.1
