@@ -52,11 +52,15 @@ the main path through the entry points a user calls:
      counts of cells > 0 and < 0 equal; steps/s over steps 1-15; one
      paint launch per update;
   9. paint vs plain — paint_cell_sets at the probe's own workload (1024^2,
-     65,536 random cells) and at one update of each of the three
-     map-update paths above (its six cell sets): grids exactly equal to
-     the plain version's, two launches bit-identical, and the update's
-     time as one call (one fill, one launch) and as six one-set calls,
-     beside the plain version's, index_put_'s and the bytes bound;
+     65,536 random cells), at one update of each of the three
+     map-update paths above (its six cell sets) and at one rank's first
+     update in phase 12 (row 0, column 0: 32 robots x 576 beams into
+     their own grids, 16 robots x 1,152 beams into the shared one, the
+     blocks shard_scan and shard_shared_fleet_scan give it): grids
+     exactly equal to the plain version's, two launches bit-identical,
+     and the update's time as one call (one fill, one launch) and as six
+     one-set calls, beside the plain version's, index_put_'s and the
+     bytes bound;
  10. probes — the cost probes of tools/probe_pallas.py and
      tools/probe_mosaic_store.py at their own shapes, driven through
      hector_slam_tpu_torch.probes (take_along over 64 [8,128] tiles on both
@@ -78,7 +82,32 @@ the main path through the entry points a user calls:
      version; then a paint_runs_split line (probes.store_split: the
      kernel's launch and grid barrier alone, + its fill, + its runs, and
      a torch.zeros fill alone);
- 11. the kernels line: per kernel, its launches on the main path (each
+ 11. queries — the query modules on JAX's map: the committed reference
+     (tests/fixtures/queries_jax_reference.npz, written on the CPU by
+     tools/make_torch_queries_reference.py) is a JAX checkpoint of the
+     JAX session's 435-scan replay, which load_state reads onto the card,
+     beside JAX's answers: the sigma-point covariance (within 1e-5 of
+     max|cov|, exactly symmetric) and likelihood (within 1e-6) at the
+     final pose with the last scan; match_pyramid_debug of that scan
+     (pose within 1e-4 of JAX's and bit-equal to match_pyramid's; each
+     Hessian within 1e-5 of its max|H|, determinants within 1e-4 and
+     condition numbers within 1e-3 relative); distance_to_obstacle_batch
+     over 65,536 rays of up to 1,024 cells and the scalar raycasts,
+     service distances and normals of 64 rays (equal); save_state ->
+     load_state round trips of the session state and of the 64-robot
+     shared fleet's final state (bit-equal); ms per call;
+ 12. sharded — parallel/sharded.py on four gloo ranks sharing the card
+     (a (robot 2, beam 2) mesh, spawned by run_ranks with a deadline):
+     the 64-robot per-robot fleet for 6 steps (poses within 2e-4, gates
+     equal, finest maps agreeing on more than 99.9% of cells against the
+     unsharded fleet_step run here), the 64-robot shared fleet (bit-equal
+     to shared_fleet_step) and shard_hypotheses at B = 4096 (within 1e-6
+     of match_hypotheses); then one NCCL rank running the per-robot fleet
+     (bit-equal); every rank's update is one paint_cells launch, counted
+     in the ranks: a rank paints on the steps where a gate of its robots
+     fired (a beam group's ranks take the same gates), and steps 1-5, the
+     timed ones, hold gated updates of both fleets;
+ 13. the kernels line: per kernel, its launches on the main path (each
      path, the probes included, is driven with the counts set to 0 just
      before it and read just after), its largest error against the plain
      version, its time, the plain version's and the library call's time,
@@ -122,6 +151,20 @@ RECOVERED_M, RECOVERED_RAD = 0.1, 0.05        # recovery bars (test_session)
 JAX_WINNER_M, JAX_WINNER_RAD = 0.005, 0.005   # card vs JAX kidnap winner
 QUAD_RESIDUAL_REL = 0.1   # "quad" vs "pallas" winner residual (test_session)
 RECOVERY_WARM_CALLS = 3   # timed repeats of each recovery, after the checks
+# the queries phase's reference (tools/make_torch_queries_reference.py)
+QUERIES_REF = ROOT / "tests" / "fixtures" / "queries_jax_reference.npz"
+QUERY_RAY_CELLS = 1024     # distance_to_obstacle_batch's max_cells
+COV_REL, LIKELIHOOD_ABS = 1e-5, 1e-6   # card vs JAX (tests/test_torch_queries)
+DEBUG_POSE_M, HESS_REL, DET_REL, COND_REL = 1e-4, 1e-5, 1e-4, 1e-3
+NORMAL_ABS = 1e-6
+# the sharded phase: four gloo ranks sharing the card on a (robot 2, beam
+# 2) mesh, and one NCCL rank; the first SHARDED_STEPS steps of the fleet
+# phases' inputs (every robot gates at step 0, the fastest fleet robots
+# again at steps 4 and 5, 25 shared-fleet robots at step 5); JAX's bars
+# (tests/test_parallel.py:123-131, 143-144)
+SHARDED_RANKS, SHARDED_ROBOT_AXIS, SHARDED_STEPS = 4, 2, 6
+SHARDED_DEADLINE_S = 300.0   # each start of ranks; killed past it
+SHARDED_POSE_M, SHARDED_MAP_AGREE, SHARDED_HYP_M = 2e-4, 0.999, 1e-6
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 non-tensor FLOP/s
 # and dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -675,7 +718,11 @@ def phase_batched(dev, kernels):
          subset_vs_plain_max=float(diffs.max()), levels=levels)
     if not ok:
         raise SystemExit("batched matching failed its checks")
-    return launches, levels, worst_abs
+    inputs = dict(levels=[lo.cpu().numpy() for lo in state.log_odds],
+                  hypotheses=hyp.cpu().numpy(),
+                  **{f: getattr(scan, f).cpu().numpy()
+                     for f in ("points", "origo", "mask")})
+    return launches, levels, worst_abs, inputs
 
 
 def fleet_ranges():
@@ -773,7 +820,7 @@ def phase_fleet(kernels):
          solo_replays={str(k): v for k, v in solo.items()})
     if not ok:
         raise SystemExit("the fleet failed its checks")
-    return launches, first
+    return launches, first, scans[:SHARDED_STEPS]
 
 
 def phase_shared_fleet(kernels):
@@ -826,7 +873,7 @@ def phase_shared_fleet(kernels):
          kernel_launches=launches, expected_paint_launches=paints)
     if not ok:
         raise SystemExit("the shared fleet disagrees with the JAX reference")
-    return launches, first
+    return launches, first, scans[:SHARDED_STEPS], ref["start_poses"], state
 
 
 def paint_index_sets(cfg, poses, scan, layout):
@@ -848,6 +895,24 @@ def paint_index_sets(cfg, poses, scan, layout):
             flats.append(flat.reshape(-1).contiguous())
             sizes.append(n)
     return names, flats, sizes
+
+
+def sharded_paint_inputs(fleet_first, shared_first):
+    """The first updates one rank of phase_sharded's mesh (row 0, column
+    0) paints, as ``phase_paint`` inputs: its block of the per-robot fleet
+    (its row's robots, its column's beams) and of the shared fleet (its
+    robots, every beam), at the fleet phases' first poses and scans."""
+    from hector_slam_tpu_torch.parallel.sharded import (
+        Mesh, shard_scan, shard_shared_fleet_scan)
+    mesh = Mesh(robot=SHARDED_ROBOT_AXIS,
+                beam=SHARDED_RANKS // SHARDED_ROBOT_AXIS, rank=0,
+                group=None, beam_group=None)
+    (fposes, fscans), (sposes, sscans) = fleet_first, shared_first
+    return {
+        "sharded": ("per_robot", fposes[:fposes.shape[0] // mesh.robot],
+                    shard_scan(fscans, mesh)),
+        "sharded_shared": ("shared", sposes[:sposes.shape[0] // mesh.size],
+                           shard_shared_fleet_scan(sscans, mesh))}
 
 
 def phase_paint(dev, inputs):
@@ -1027,6 +1092,322 @@ def phase_probes(dev, kernels):
     return launches, rows, long_lines
 
 
+def diag_errors(diag, ref) -> dict:
+    """The debug diagnostics against JAX's: each iteration's Hessian error
+    over its max|H|, and the determinants' and condition numbers' largest
+    relative errors."""
+    n = len(ref["diag_hessian"])
+    h = diag.hessian.cpu().numpy().reshape(n, 9)
+    hj = ref["diag_hessian"].reshape(n, 9)
+    out = {"hessian": float((np.abs(h - hj).max(1)
+                             / np.abs(hj).max(1)).max())}
+    for name in ("determinant", "determinant_2d", "condition_num",
+                 "condition_num_2d"):
+        want = ref[f"diag_{name}"]
+        out[name] = float((np.abs(getattr(diag, name).cpu().numpy() - want)
+                           / np.abs(want)).max())
+    return out
+
+
+def phase_queries(dev, kernels, shared_state):
+    """The query modules on the card, on JAX's map and against JAX's
+    answers (QUERIES_REF, written by tools/make_torch_queries_reference.py
+    from the JAX session's 435-scan replay on BENCH_CONFIG; the file is a
+    JAX checkpoint, so ``load_state`` reads the map from it): the
+    sigma-point covariance and likelihood at the final pose with the last
+    scan, the debug match of that scan (14 GN iterations), 65,536 batch
+    raycasts of up to 1,024 cells, the 64 scalar raycasts, normals and
+    service distances, and save_state -> load_state round trips of the
+    session state and of the 64-robot shared fleet's final state. Times
+    are per call (CUDA events, host-fed; the scalar queries and the
+    checkpoints on the host clock). Returns the path's launches (no kernel
+    runs here)."""
+    import os
+    import tempfile
+
+    import hector_slam_tpu_torch as ht
+    from hector_slam_tpu_torch.core import covariance as cov_mod
+    from hector_slam_tpu_torch.core.grid import world_to_map_pose
+    from hector_slam_tpu_torch.io.checkpoint import checkpoint_leaves
+    cfg = ht.BENCH_CONFIG
+    ref = np.load(QUERIES_REF)
+    reset_counts(kernels)
+    state, load_jax_ms = timed_call(lambda: ht.load_state(str(QUERIES_REF),
+                                                          cfg))
+    scan = ht.scan_from_numpy(ref["scan_points"], ref["scan_origo"],
+                              ref["scan_mask"])
+    pm = world_to_map_pose(state.pose, cfg.map.top_left_offset,
+                           cfg.map.level_scale(0))
+    lo0 = state.log_odds[0]
+    cov = cov_mod.sigma_point_covariance(lo0, pm, scan).cpu().numpy()
+    lh = float(cov_mod.likelihood_for_state(lo0, pm, scan))
+    start = torch.from_numpy(ref["debug_start"]).to(dev)
+    pose, hess, diag = ht.match_pyramid_debug(state.log_odds, start, scan,
+                                              cfg, quads=state.quads)
+    matched = ht.match_pyramid(state.log_odds, start, scan, cfg,
+                               quads=state.quads)
+    occ = ht.to_occupancy_grid_tensor(lo0)
+    begins = torch.from_numpy(ref["ray_begins"]).to(dev)
+    ends = torch.from_numpy(ref["ray_ends"]).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    rays = ht.distance_to_obstacle_batch(occ, begins, ends,
+                                         max_cells=QUERY_RAY_CELLS)
+    ray_peak = torch.cuda.max_memory_allocated() - base_mem
+    occ_np = occ.cpu().numpy()
+    meta = ht.grid_meta(cfg.map)
+    robot = ref["scalar_robot"]
+
+    def scalar_queries():
+        out = []
+        for p in ref["scalar_points"]:
+            d, hit = ht.distance_to_obstacle(occ_np, meta, robot, p[:2])
+            n = ht.get_normal(occ_np, meta, robot, p)
+            out.append((d, np.full(2, np.nan) if hit is None else hit,
+                        ht.get_distance_to_obstacle(occ_np, meta, robot, p),
+                        np.full(2, np.nan) if n is None else n))
+        return out
+
+    scalar, scalar_ms = timed_call(scalar_queries)
+    d, hits, service, normals = (np.asarray(c) for c in zip(*scalar))
+    round_trips = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, st, template in (
+                ("session", state, None),
+                ("shared_fleet", shared_state, ht.init_shared_fleet(
+                    cfg, shared_state.pose.shape[0]))):
+            path = os.path.join(tmp, f"{name}.npz")
+            _, save_ms = timed_call(lambda: ht.save_state(path, st))
+            back, load_ms = timed_call(lambda: ht.load_state(
+                path, cfg, template=template))
+            round_trips[name] = dict(
+                bit_equal=all(torch.equal(a, b) for a, b in zip(
+                    checkpoint_leaves(back), checkpoint_leaves(st))) and all(
+                    torch.equal(a, b) for a, b in zip(back.quads, st.quads)),
+                on_card=back.pose.device == state.pose.device
+                and back.pose.device.type == dev.type,
+                save_ms=save_ms, load_ms=load_ms,
+                bytes=os.path.getsize(path))
+    launches = read_counts(kernels)
+    # per-call times after the checks (first uses above)
+    times = dict(
+        covariance_ms=cuda_ms(lambda: cov_mod.sigma_point_covariance(
+            lo0, pm, scan), 20),
+        likelihood_ms=cuda_ms(lambda: cov_mod.likelihood_for_state(
+            lo0, pm, scan), 20),
+        debug_ms=cuda_ms(lambda: ht.match_pyramid_debug(
+            state.log_odds, start, scan, cfg, quads=state.quads), 5),
+        match_pyramid_ms=cuda_ms(lambda: ht.match_pyramid(
+            state.log_odds, start, scan, cfg, quads=state.quads), 5),
+        raycast_batch_ms=cuda_ms(lambda: ht.distance_to_obstacle_batch(
+            occ, begins, ends, max_cells=QUERY_RAY_CELLS), 5),
+        scalar_query_ms=scalar_ms / len(scalar),
+        load_jax_checkpoint_ms=load_jax_ms)
+    errs = diag_errors(diag, ref)
+    cov_ref = ref["covariance"]
+    checks = {
+        "jax_state": bool(np.array_equal(state.pose.cpu().numpy(),
+                                         ref["poses"][-1])),
+        "covariance": float(np.abs(cov - cov_ref).max())
+        <= COV_REL * float(np.abs(cov_ref).max())
+        and bool(np.array_equal(cov, cov.T)) and bool(
+            (np.diag(cov) >= 0).all()),
+        "likelihood": abs(lh - float(ref["likelihood"])) <= LIKELIHOOD_ABS,
+        "debug_pose": float(np.abs(pose.cpu().numpy()
+                                   - ref["debug_pose"]).max())
+        <= DEBUG_POSE_M,
+        "debug_bit_equal_match_pyramid": bool(torch.equal(pose,
+                                                          matched.pose)),
+        "debug_diagnostics": errs["hessian"] <= HESS_REL
+        and errs["determinant"] <= DET_REL
+        and errs["determinant_2d"] <= DET_REL
+        and errs["condition_num"] <= COND_REL
+        and errs["condition_num_2d"] <= COND_REL
+        and diag.hessian.shape == (14, 3, 3)
+        and bool(torch.equal(diag.hessian[-1], hess)),
+        "raycast_batch": bool(np.array_equal(rays.cpu().numpy(),
+                                             ref["ray_distances"])),
+        "raycast_scalar": bool(np.array_equal(d, ref["scalar_distances"])
+                               and np.array_equal(hits, ref["scalar_hits"],
+                                                  equal_nan=True)),
+        "service_distances": bool(np.array_equal(
+            service, ref["service_distances"])),
+        "normals": bool(np.allclose(normals, ref["normals"], rtol=0,
+                                    atol=NORMAL_ABS, equal_nan=True)),
+        "round_trips": all(v["bit_equal"] and v["on_card"]
+                           for v in round_trips.values()),
+        "no_kernel": not any(launches.values()),
+    }
+    ok = all(checks.values())
+    emit("queries", ok=ok, checks=checks, **times,
+         covariance_max_abs_err=float(np.abs(cov - cov_ref).max()),
+         likelihood=lh, jax_likelihood=float(ref["likelihood"]),
+         debug_pose_err_m=float(np.abs(pose.cpu().numpy()
+                                       - ref["debug_pose"]).max()),
+         debug_errors=errs, condition_num=diag.condition_num.tolist(),
+         rays=len(ref["ray_distances"]), rays_hit=int((rays >= 0).sum()),
+         raycast_peak_mem_above_inputs_bytes=ray_peak,
+         scalar_rays=len(scalar), scalar_hits=int(np.isfinite(
+             hits[:, 0]).sum()), round_trips=round_trips,
+         kernel_launches=launches)
+    if not ok:
+        raise SystemExit("the queries failed their checks: " + ", ".join(
+            k for k, v in checks.items() if not v))
+    return launches
+
+
+def phase_sharded(dev, kernels, fleet_scans, shared_scans, starts,
+                  hyp_inputs):
+    """(a) SHARDED_RANKS gloo ranks sharing the card, spawned with
+    sharded.run_ranks on a (robot SHARDED_ROBOT_AXIS, beam 2) mesh, run in
+    turn: the 64-robot per-robot fleet for SHARDED_STEPS steps on
+    the fleet phase's first scans (robots over the rows, the 1152 beams
+    over the columns), the 64-robot shared fleet on the shared fleet
+    phase's (robots over every rank, the pyramid replicated), and
+    shard_hypotheses at B = 4096 on the batched phase's; each is held
+    against the same run unsharded in this process: the per-robot fleet
+    to JAX's bars (poses within SHARDED_POSE_M, gates equal, the finest
+    maps agreeing on more than SHARDED_MAP_AGREE of cells), the shared
+    fleet bit for bit (robots only), the hypotheses within
+    SHARDED_HYP_M. (b) One NCCL rank: the per-robot fleet again, its
+    collectives identities, bit-equal to the unsharded run. Every rank's
+    map update is one paint_cells launch, counted in the ranks; the steps
+    after the first (timed) hold gated updates of both fleets. Returns
+    the launches the ranks counted, summed over them, and the paint
+    launches of each run."""
+    import tempfile
+
+    import hector_slam_tpu_torch as ht
+    from hector_slam_tpu_torch.parallel.sharded import run_ranks
+    from tools.torch_sharded_ranks import (fleet_job, hypotheses_job,
+                                           run_jobs, shared_fleet_job,
+                                           stacked_scans)
+    cfg = ht.BENCH_CONFIG
+    fleet_in = stacked_scans(fleet_scans)
+    shared_in = dict(stacked_scans(shared_scans), start_poses=starts)
+    wall = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {k: str(Path(tmp) / f"{k}.npz")
+               for k in ("fleet", "shared_fleet", "hypotheses", "nccl")}
+        jobs = [(fleet_job, (cfg, dev.type, SHARDED_ROBOT_AXIS, fleet_in,
+                             out["fleet"])),
+                (shared_fleet_job, (cfg, dev.type, SHARDED_ROBOT_AXIS,
+                                    shared_in, out["shared_fleet"])),
+                (hypotheses_job, (cfg, dev.type, SHARDED_ROBOT_AXIS,
+                                  hyp_inputs, out["hypotheses"]))]
+        t0 = time.perf_counter()
+        run_ranks(run_jobs, SHARDED_RANKS, "gloo", (jobs,),
+                  deadline_s=SHARDED_DEADLINE_S)
+        wall["gloo_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_ranks(fleet_job, 1, "nccl", (cfg, dev.type, 1, fleet_in,
+                                         out["nccl"]),
+                  deadline_s=SHARDED_DEADLINE_S)
+        wall["nccl_s"] = time.perf_counter() - t0
+        got = {k: dict(np.load(v)) for k, v in out.items()}
+
+    # the same runs unsharded, in this process
+    r = fleet_scans[0].mask.shape[0]
+    fleet = ht.init_fleet(cfg, r, device=dev)
+    fleet, fposes, fmetrics, fsec = run_steps(
+        lambda st, sc: ht.fleet_step(st, sc, cfg), fleet, fleet_scans)
+    fposes = torch.stack(fposes).cpu().numpy()
+    fgates = torch.stack([m.map_updated for m in fmetrics]).cpu().numpy()
+    flevels = [lo.cpu().numpy() for lo in fleet.log_odds]
+    del fleet
+    shared = ht.init_shared_fleet(cfg, shared_scans[0].mask.shape[0],
+                                  start_poses=starts, device=dev)
+    shared, sposes, smetrics, ssec = run_steps(
+        lambda st, sc: ht.shared_fleet_step(st, sc, cfg), shared,
+        shared_scans)
+    sposes = torch.stack(sposes).cpu().numpy()
+    sgates = torch.stack([m.map_updated for m in smetrics]).cpu().numpy()
+    strunc = torch.stack([m.truncated_free_cells
+                          for m in smetrics]).cpu().numpy()
+    hyp = ht.match_hypotheses(
+        [torch.from_numpy(lo).to(dev) for lo in hyp_inputs["levels"]],
+        torch.from_numpy(hyp_inputs["hypotheses"]).to(dev),
+        ht.scan_from_numpy(hyp_inputs["points"], hyp_inputs["origo"],
+                           hyp_inputs["mask"], device=dev), cfg)
+    hyp_poses = hyp.pose.cpu().numpy()
+
+    fl, sf, hy, nc = (got[k] for k in ("fleet", "shared_fleet",
+                                       "hypotheses", "nccl"))
+    agree = [float(np.mean(fl[f"lo_{k}"] == flevels[k]))
+             for k in range(cfg.map.levels)]
+    timed = SHARDED_STEPS - 1
+    launches = {name: sum(int(g[f"launches_{name}"]) for g in got.values()
+                          if f"launches_{name}" in g) for name in kernels}
+    paints = {k: int(g["launches_paint_cells"]) for k, g in got.items()}
+    # a rank paints once per step where a gate of its robots fired: a
+    # fleet row's beam ranks when one of the row's robots gated, every
+    # shared-fleet rank when any robot gated; shard_hypotheses paints
+    # nothing
+    beam = SHARDED_RANKS // SHARDED_ROBOT_AXIS
+    rows = fgates.reshape(SHARDED_STEPS, SHARDED_ROBOT_AXIS, -1).any(-1)
+    expected = {"fleet": beam * int(rows.sum()),
+                "shared_fleet": SHARDED_RANKS * int(sgates.any(1).sum()),
+                "hypotheses": 0, "nccl": int(fgates.any(1).sum())}
+    checks = {
+        "fleet_poses": float(np.abs(fl["poses"] - fposes).max())
+        <= SHARDED_POSE_M,
+        "fleet_gates": bool(np.array_equal(fl["gates"], fgates)),
+        "fleet_maps": agree[0] > SHARDED_MAP_AGREE,
+        "fleet_gated": bool(fgates[0].all()),
+        "shared_bit_equal": bool(
+            np.array_equal(sf["poses"], sposes)
+            and np.array_equal(sf["gates"], sgates)
+            and np.array_equal(sf["truncated"], strunc)
+            and int(sf["count"]) == int(shared.map_update_count)
+            and all(np.array_equal(sf[f"lo_{k}"], lo.cpu().numpy())
+                    for k, lo in enumerate(shared.log_odds))),
+        "hypotheses": float(np.abs(hy["poses"] - hyp_poses).max())
+        <= SHARDED_HYP_M,
+        "nccl_bit_equal": bool(
+            np.array_equal(nc["poses"], fposes)
+            and np.array_equal(nc["gates"], fgates)
+            and all(np.array_equal(nc[f"lo_{k}"], flevels[k])
+                    for k in range(cfg.map.levels))),
+        "paint_launches": paints == expected
+        and launches["interp_moments"] == 0,
+        # the timed steps hold gated updates of both fleets
+        "timed_steps_gated": bool(fgates[1:].any() and sgates[1:].any()),
+        "finite": bool(np.isfinite(fl["poses"]).all()
+                       and np.isfinite(hy["poses"]).all()),
+    }
+    ok = all(checks.values())
+    emit("sharded", ok=ok, checks=checks, ranks=SHARDED_RANKS,
+         mesh={"robot": SHARDED_ROBOT_AXIS,
+               "beam": SHARDED_RANKS // SHARDED_ROBOT_AXIS},
+         backend="gloo, CUDA tensors, the ranks sharing one card; one NCCL "
+         "rank", steps=SHARDED_STEPS, timed_steps=timed,
+         fleet_robots=r, fleet_gates_per_step=fgates.sum(1).tolist(),
+         fleet_pose_max_diff_m=float(np.abs(fl["poses"] - fposes).max()),
+         fleet_map_agreement_by_level=agree,
+         fleet_truncated_equal=bool(np.array_equal(
+             fl["truncated"], torch.stack([m.truncated_free_cells
+                                           for m in fmetrics]).cpu().numpy())),
+         shared_gates_per_step=sgates.sum(1).tolist(),
+         hypotheses_max_diff=float(np.abs(hy["poses"] - hyp_poses).max()),
+         nccl_pose_max_diff_m=float(np.abs(nc["poses"] - fposes).max()),
+         # rank 0's host seconds for the steps after the first; robot-scans
+         # per second of four ranks sharing one card, not a multi-card rate
+         sharded_fleet_robot_scans_per_s=timed * r / float(fl["seconds"]),
+         unsharded_fleet_robot_scans_per_s=timed * r / fsec,
+         sharded_shared_robot_scans_per_s=timed * sposes.shape[1]
+         / float(sf["seconds"]),
+         unsharded_shared_robot_scans_per_s=timed * sposes.shape[1] / ssec,
+         nccl_fleet_robot_scans_per_s=timed * r / float(nc["seconds"]),
+         sharded_hypotheses_ms=float(hy["seconds"]) * 1e3,
+         wall_s=wall, kernel_launches=launches, paint_launches_by_run=paints,
+         expected_paint_launches=expected)
+    if not ok:
+        raise SystemExit("the sharded runs failed their checks: " + ", ".join(
+            k for k, v in checks.items() if not v))
+    return launches, paints
+
+
 def probe_entry(name, source, replaces, paths, rows):
     """A probe kernel's kernels-line entry: means over its workloads, each
     launched alike on the probes path; ms and library_ms at the high rep
@@ -1080,13 +1461,20 @@ def run_paths(dev):
         kernels)
     paint_inputs["sequential"] = ("single", pose, scan)
     paths["session"] = phase_session(kernels, run_log_poses)
-    paths["batched"], levels, abs_main = phase_batched(dev, kernels)
-    paths["fleet"], (poses, scans) = phase_fleet(kernels)
-    paint_inputs["fleet"] = ("per_robot", poses, scans)
-    paths["shared_fleet"], (poses, scans) = phase_shared_fleet(kernels)
-    paint_inputs["shared_fleet"] = ("shared", poses, scans)
+    paths["batched"], levels, abs_main, hyp_inputs = phase_batched(
+        dev, kernels)
+    paths["fleet"], fleet_first, fleet_scans = phase_fleet(kernels)
+    paint_inputs["fleet"] = ("per_robot", *fleet_first)
+    (paths["shared_fleet"], shared_first, shared_scans, starts,
+     shared_state) = phase_shared_fleet(kernels)
+    paint_inputs["shared_fleet"] = ("shared", *shared_first)
+    paint_inputs.update(sharded_paint_inputs(fleet_first, shared_first))
     paint_rows, paint_bad = phase_paint(dev, paint_inputs)
     paths["probes"], probe_rows, long_lines = phase_probes(dev, kernels)
+    paths["queries"] = phase_queries(dev, kernels, shared_state)
+    del shared_state
+    paths["sharded"], sharded_paints = phase_sharded(
+        dev, kernels, fleet_scans, shared_scans, starts, hyp_inputs)
     for name in kernels:
         if not any(p[name] for p in paths.values()):
             raise SystemExit(f"{name} was launched on no main path")
@@ -1097,13 +1485,19 @@ def run_paths(dev):
     def mean(key):
         return sum(lv[key] * lv["gn_steps"] for lv in levels) / total
 
-    # paint: each SLAM path's update weighted by its launches (one each)
+    # paint: each update shape weighted by the launches painting it (one
+    # per update); the NCCL rank paints the whole fleet, the gloo ranks
+    # their blocks
+    weights = {p: paths[p]["paint_cells"]
+               for p in ("sequential", "fleet", "shared_fleet")}
+    weights["fleet"] += sharded_paints["nccl"]
+    weights["sharded"] = sharded_paints["fleet"]
+    weights["sharded_shared"] = sharded_paints["shared_fleet"]
     slam_rows = [r for r in paint_rows if r["path"]]
-    wsum = sum(paths[r["path"]]["paint_cells"] for r in slam_rows)
+    wsum = sum(weights[r["path"]] for r in slam_rows)
 
     def pmean(key):
-        return sum(r[key] * paths[r["path"]]["paint_cells"]
-                   for r in slam_rows) / wsum
+        return sum(r[key] * weights[r["path"]] for r in slam_rows) / wsum
 
     def by_path(name):
         return {k: p[name] for k, p in paths.items()}

@@ -12,10 +12,12 @@ from .config import (BENCH_CONFIG, CITYFLYER_LOG_CONFIG, DEFAULT_CONFIG,
                      SINGLE_MAP_CONFIG, TUTORIAL_CONFIG, UGV_CONFIG,
                      MapConfig, MatchConfig, SlamConfig, UpdateConfig)
 from .convert import fleet_state_from_numpy, scan_from_numpy, state_from_numpy
+from .core.debug import match_pyramid_debug
 from .core.mapping import update_pyramid
 from .core.matcher import match_level, match_pyramid
 from .core.slam import init_state, run_log, slam_step
 from .export.geotiff import GeotiffExporter, write_geotiff
+from .export.markers import arrow_marker, covariance_ellipse, pose_markers
 from .export.images import map_tile_image, map_to_image, write_pgm, write_png
 from .export.occupancy import (GridMeta, grid_meta, map_extends,
                                to_occupancy_grid, to_occupancy_grid_tensor)
@@ -23,6 +25,7 @@ from .export.pose_output import (covariance_6x6, covariance_world_coords,
                                  pose_stamped, quaternion_to_yaw,
                                  yaw_to_quaternion)
 from .export.trajectory import RecoveryInfo, TrajectoryRecorder
+from .io.checkpoint import load_state, save_state
 from .io.scanlog import (LaserModel, load_log, save_log, scan_from_points,
                          scan_from_ranges, stack_scans)
 from .ops.interp_moments import interp_moments, interp_moments_plain
@@ -32,6 +35,9 @@ from .parallel.batch import (best_hypothesis, fleet_step, init_fleet,
 from .parallel.kernel_match import MatchDiag, match_hypotheses_kernel
 from .parallel.recovery import auto_prune_top_k, prune_hypotheses_coarse
 from .parallel.shared_map import init_shared_fleet, shared_fleet_step
+from .query.raycast import (distance_to_obstacle, distance_to_obstacle_batch,
+                            get_distance_to_obstacle, get_normal,
+                            get_search_position)
 from .session import SlamSession
 from .types import MatchResult, Scan, SlamState, StepMetrics
 
@@ -41,15 +47,17 @@ __all__ = [
     "SINGLE_MAP_CONFIG", "TUTORIAL_CONFIG", "UGV_CONFIG",
     "MapConfig", "MatchConfig", "SlamConfig", "UpdateConfig",
     "fleet_state_from_numpy", "scan_from_numpy", "state_from_numpy",
-    "update_pyramid", "match_level", "match_pyramid",
+    "update_pyramid", "match_level", "match_pyramid", "match_pyramid_debug",
     "init_state", "run_log", "slam_step",
     "GeotiffExporter", "write_geotiff",
+    "arrow_marker", "covariance_ellipse", "pose_markers",
     "map_tile_image", "map_to_image", "write_pgm", "write_png",
     "GridMeta", "grid_meta", "map_extends", "to_occupancy_grid",
     "to_occupancy_grid_tensor",
     "covariance_6x6", "covariance_world_coords", "pose_stamped",
     "quaternion_to_yaw", "yaw_to_quaternion",
     "RecoveryInfo", "TrajectoryRecorder",
+    "load_state", "save_state",
     "LaserModel", "load_log", "save_log", "scan_from_points",
     "scan_from_ranges", "stack_scans",
     "interp_moments", "interp_moments_plain",
@@ -58,5 +66,7 @@ __all__ = [
     "residual_for_poses", "init_shared_fleet", "shared_fleet_step",
     "MatchDiag", "match_hypotheses_kernel",
     "auto_prune_top_k", "prune_hypotheses_coarse", "SlamSession",
+    "distance_to_obstacle", "distance_to_obstacle_batch",
+    "get_distance_to_obstacle", "get_normal", "get_search_position",
     "MatchResult", "Scan", "SlamState", "StepMetrics",
 ]

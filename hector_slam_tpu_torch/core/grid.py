@@ -57,6 +57,13 @@ def map_to_world_pose(pose: torch.Tensor, offset, cell_length) -> torch.Tensor:
     return torch.cat([w, pose[..., 2:]], dim=-1)
 
 
+def log_odds_to_prob(log_odds: torch.Tensor) -> torch.Tensor:
+    """odds/(odds+1) exactly as GridMapLogOdds.h:163-167 (the occupied-side
+    log-odds clamp at 50 keeps exp finite)."""
+    odds = torch.exp(log_odds)
+    return odds / (odds + 1.0)
+
+
 # two-float split of the double 2*pi (f64(2*pi) == _TWO_PI_HI + _TWO_PI_LO
 # to f64 precision): emulates the reference's double-precision angle
 # arithmetic in f32 (hector_slam_tpu/core/grid.py:63-75)

@@ -213,3 +213,20 @@ def hessian_derivs_quad(
     hot path (one gather per beam)."""
     eqs = normal_eqs_quad(quad, shape, pose_map, points, mask)
     return eqs.hess, eqs.dtr
+
+
+def hessian_derivs(
+    log_odds: torch.Tensor,    # f32[H, W] one pyramid level's storage
+    pose_map: torch.Tensor,    # f32[3] pose in this level's map coords
+    points: torch.Tensor,      # f32[N, 2] beam endpoints (map scale)
+    mask: torch.Tensor,        # bool[N]
+    cell_model: str = "log_odds",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """getCompleteHessianDerivs (OccGridMapUtil.h:64-104) from a level's
+    storage: (H f32[3, 3], dTr f32[3]). The storage is quad-packed and
+    summed by ``normal_eqs_quad``, so the sums run in the matcher's order
+    and the values are ``interp_with_derivatives``' (the quad fetch is
+    bit-equal to the four gathers)."""
+    return hessian_derivs_quad(quad_pack_storage(log_odds, cell_model),
+                               tuple(log_odds.shape[-2:]), pose_map, points,
+                               mask)

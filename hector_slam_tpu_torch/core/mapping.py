@@ -31,6 +31,7 @@ from ..config import SlamConfig
 from ..ops.paint_cells import paint_cell_sets
 from ..types import Scan
 from .cell_models import apply_update, storage_channels
+from .collectives import por
 from .grid import world_to_map_pose
 from .matcher import level_points
 
@@ -113,13 +114,15 @@ def _bresenham_params(grid_shape, pose_world, scan_points, scan_origo,
     )
 
 
-def _paint_pairs(pairs, shapes):
+def _paint_pairs(pairs, shapes, beam_axis=None):
     """Commutative scatter-OR of every (free, occupied) index pair into
     bool grids of ``shapes[k]``, (H, W) or, for per-robot indices offset
     by r*H*W, (R, H, W): one ``paint_cell_sets`` call for all pairs; the
-    sentinel index (== num cells) drops."""
+    sentinel index (== num cells) drops. ``beam_axis``: the grids are then
+    OR-combined over the process group's ranks (one all-reduce)."""
     grids = paint_cell_sets([f for pair in pairs for f in pair],
                             [math.prod(s) for s in shapes for _ in (0, 1)])
+    grids = por(grids, beam_axis)
     return [(grids[2 * k].reshape(s), grids[2 * k + 1].reshape(s))
             for k, s in enumerate(shapes)]
 
@@ -195,12 +198,14 @@ def _level_sets(grid_shape, per_robot, pose_world, scan_points, scan_origo,
 
 
 def _update_levels(storages, level_inputs, cell_model: str,
-                   log_odds_free: float, log_odds_occupied: float):
+                   log_odds_free: float, log_odds_occupied: float,
+                   beam_axis=None):
     """Each storage updated with its level's scan inputs (pose, points,
     origo, mask, offset, scale, max_ray_cells): every level's index sets
-    first, then all of them painted in one call, then each level
-    updated. A storage with a leading robot axis beyond the cell model's
-    own is R maps. Returns (new storages, truncated cells per level)."""
+    first, then all of them painted in one call (and OR-combined over
+    ``beam_axis``), then each level updated. A storage with a leading
+    robot axis beyond the cell model's own is R maps. Returns (new
+    storages, this rank's truncated cells per level)."""
     pairs, shapes, truncated = [], [], []
     for lo, inputs in zip(storages, level_inputs):
         pair, shape, trunc = _level_sets(
@@ -212,8 +217,8 @@ def _update_levels(storages, level_inputs, cell_model: str,
     new = tuple(
         apply_update(lo, free_set & ~occ_set, occ_set, cell_model,
                      log_odds_free, log_odds_occupied)
-        for lo, (free_set, occ_set) in zip(storages,
-                                           _paint_pairs(pairs, shapes)))
+        for lo, (free_set, occ_set) in zip(
+            storages, _paint_pairs(pairs, shapes, beam_axis)))
     return new, truncated
 
 
@@ -278,6 +283,7 @@ def update_pyramid(
     scan: Scan,
     cfg: SlamConfig,
     gates: torch.Tensor | None = None,
+    beam_axis=None,
 ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
     """MapRepMultiMap::updateByScan (MapRepMultiMap.h:134-147): every level
     updated independently with its 2^-level-scaled scan. Returns (new
@@ -295,7 +301,14 @@ def update_pyramid(
     computed first, then all 2 x levels sets are painted together, then
     each level is updated. So every level's index tensors are alive at
     once: for 64 per-robot ``BENCH_CONFIG`` pyramids about 340 MB (191 MB
-    of them the level-0 free set), plus 176 MB of bool grids."""
+    of them the level-0 free set), plus 176 MB of bool grids.
+
+    ``beam_axis``: the process group whose ranks' cell sets are
+    OR-combined before the update (hector_slam_tpu/core/mapping.py:
+    323-328): the beam shards of the same scans, or the robot shards of a
+    shared-map fleet (parallel/shared_map.py). The truncated counts stay
+    this rank's: the caller sums them over the group (per robot for beam
+    shards, the fleet's total for robot shards)."""
     mcfg = cfg.map
     mask = scan.mask if gates is None else scan.mask & gates[:, None]
     new, truncated = _update_levels(
@@ -305,7 +318,7 @@ def update_pyramid(
           mcfg.level_scale(level), cfg.level_max_ray_cells(level))
          for level in range(len(log_odds_pyramid))],
         cfg.update.cell_model, cfg.update.log_odds_free,
-        cfg.update.log_odds_occupied)
+        cfg.update.log_odds_occupied, beam_axis)
     truncated_total = torch.zeros(pose_world.shape[:-1], dtype=torch.int32,
                                   device=scan.points.device)
     for t in truncated:

@@ -24,6 +24,7 @@ from typing import Sequence, Tuple
 import torch
 
 from ..config import SlamConfig
+from ..core.collectives import psum
 from ..core.grid import pose_difference_larger_than, world_to_map_pose
 from ..core.interp import beam_sum, interp_quad, quad_pack_storage
 from ..core.mapping import update_pyramid
@@ -92,20 +93,29 @@ def fleet_step(
     states: SlamState,   # leading robot axis R on every leaf
     scans: Scan,         # points [R, N, 2], origo [R, 2], mask [R, N]
     cfg: SlamConfig,
+    beam_axis=None,
 ) -> Tuple[SlamState, StepMetrics]:
     """One SLAM step for R independent robots: each robot matches its scan
     against its own map, gates on its own last update pose and, if gated,
     integrates into its own map — ``slam_step`` per robot, batched.
-    Returns (new states, metrics with leading axis R)."""
+    Returns (new states, metrics with leading axis R).
+
+    ``beam_axis``: the process group over which the scans' beams are
+    sharded (parallel/sharded.make_fleet_step): its ranks hold the same
+    robots, combine each GN step's normal equations and the painted cell
+    sets, and so take the same gates, as ``slam_step`` does."""
     result = match_pyramid(states.log_odds, states.pose, scans, cfg,
-                           quads=states.quads)
+                           quads=states.quads, beam_axis=beam_axis)
     new_pose, hessian = result.pose, result.hessian
     gates = pose_difference_larger_than(
         new_pose, states.last_map_update_pose,
         cfg.map_update_distance_thresh, cfg.map_update_angle_thresh)
+    # the gates come from the all-reduced match, so a beam group's ranks
+    # take this branch together (see slam.update_phase)
     if bool(gates.any()):   # the one host sync per step
         new_log_odds, truncated = update_pyramid(
-            states.log_odds, new_pose, scans, cfg, gates)
+            states.log_odds, new_pose, scans, cfg, gates, beam_axis)
+        truncated = psum(truncated, beam_axis)
         # non-gated robots' maps are unchanged, so their quads come out
         # as they were
         new_quads = quads_of(new_log_odds, cfg.update.cell_model)
@@ -127,7 +137,7 @@ def fleet_step(
         pose_delta=new_pose - states.pose,
         map_updated=gates,
         hessian_det=det3(hessian),
-        num_valid_beams=scans.mask.sum(-1).to(torch.int32),
+        num_valid_beams=psum(scans.mask.sum(-1).to(torch.int32), beam_axis),
         truncated_free_cells=truncated,
     )
     return new_states, metrics

@@ -11,7 +11,16 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
+
+
+def host_array(x) -> np.ndarray:
+    """A numpy array of ``x``: a tensor on any device (copied to the
+    host), a numpy array or a sequence."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def resolve_device(device) -> torch.device:

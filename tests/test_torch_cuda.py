@@ -649,3 +649,51 @@ def test_session_relocalize_on_card_matches_cpu(cuda_device):
     assert np.linalg.norm(got["pose"][:2] - want["pose"][:2]) < 5e-3
     assert abs(float(got["pose"][2] - want["pose"][2])) < 5e-3
     assert np.linalg.norm(got["pose"][:2] - good[:2]) < 0.1
+
+
+@pytest.mark.cuda
+def test_raycast_batch_on_card_matches_cpu(cuda_device):
+    """distance_to_obstacle_batch on the card and on the CPU, on the same
+    map and rays: the same cell distances, exactly (integer cells; the
+    one float op, sqrt then floor, is correctly rounded on both)."""
+    rng = np.random.default_rng(41)
+    g = np.where(rng.uniform(size=(512, 384)) < 0.02, 100,
+                 rng.choice([-1, 0], (512, 384))).astype(np.int8)
+    begins = rng.integers(-8, 520, (16384, 2)).astype(np.int32)
+    ends = rng.integers(-8, 520, (16384, 2)).astype(np.int32)
+    card = ht.distance_to_obstacle_batch(g, begins, ends, max_cells=600)
+    assert card.device.type == "cuda"
+    cpu = ht.distance_to_obstacle_batch(g, begins, ends, max_cells=600,
+                                        device="cpu")
+    assert torch.equal(card.cpu(), cpu)
+    assert int((cpu >= 0).sum()) > 1000 and int((cpu < 0).sum()) > 1000
+
+
+@pytest.mark.cuda
+def test_checkpoint_written_on_card_loads_on_cpu(cuda_device, tmp_path):
+    """A fleet state on the card through save_state, load_state on the CPU
+    (and back onto the card): every leaf bit-equal, the quads recomputed
+    from the levels equal to the card's own."""
+    cfg = ht.SlamConfig(map=ht.MapConfig(resolution=0.05, size_x=256,
+                                         size_y=256, levels=2),
+                        max_beams=1152, max_ray_cells=256)
+    laser = ht.LaserModel()
+    ranges = simulate_trajectory(World.room(size=10.0),
+                                 np.zeros((3, 3), np.float32), laser)
+    scans = ht.stack_scans([ht.scan_from_ranges(r, cfg.map.level_scale(0),
+                                                laser, cfg.max_beams)
+                            for r in ranges])
+    fleet, _ = ht.fleet_step(ht.init_fleet(cfg, 3), scans, cfg)
+    path = str(tmp_path / "fleet.npz")
+    ht.save_state(path, fleet)
+    template = ht.init_fleet(cfg, 3, device="cpu")
+    cpu = ht.load_state(path, cfg, template=template, device="cpu")
+    back = ht.load_state(path, cfg, template=template)
+    for state in (cpu, back):
+        for got, want in zip((*state.log_odds, *state[1:6]),
+                             (*fleet.log_odds, *fleet[1:6])):
+            assert torch.equal(got.cpu(), want.cpu())
+    assert back.pose.device.type == "cuda"
+    for got, want in zip(back.quads, fleet.quads):
+        assert torch.equal(got, want)
+    assert int((cpu.log_odds[0] > 0).sum()) > 100

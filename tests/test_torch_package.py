@@ -1,7 +1,8 @@
 """Package boundaries of the PyTorch port: no module of
 hector_slam_tpu_torch/, nor any script or test that runs on the card
 (chip_smoke.py, tools/profile_torch_port.py, tools/ab_torch_rates.py,
-tools/ablate_torch_kernels.py, tests/test_torch_cuda.py), imports JAX or
+tools/ablate_torch_kernels.py, tools/torch_sharded_ranks.py,
+tests/test_torch_cuda.py), imports JAX or
 the JAX package, and the entry points put their tensors on the card
 unless the caller asks for the CPU — raising, never falling back, when
 no card is present."""
@@ -32,6 +33,7 @@ def _port_files():
     yield os.path.join(REPO, "tools", "profile_torch_port.py")
     yield os.path.join(REPO, "tools", "ab_torch_rates.py")
     yield os.path.join(REPO, "tools", "ablate_torch_kernels.py")
+    yield os.path.join(REPO, "tools", "torch_sharded_ranks.py")
     yield os.path.join(REPO, "tests", "test_torch_cuda.py")
 
 
@@ -48,6 +50,11 @@ def _imported_modules(path):
 def test_port_imports_no_jax():
     files = list(_port_files())
     assert len(files) > 15
+    # the modules of the last slice are among them
+    for mod in ("core/covariance.py", "core/debug.py", "core/collectives.py",
+                "query/raycast.py", "export/markers.py", "io/checkpoint.py",
+                "io/attitude.py", "parallel/sharded.py"):
+        assert os.path.join(PKG, mod) in files, mod
     for path in files:
         for mod in _imported_modules(path):
             root = mod.split(".")[0]
@@ -74,7 +81,8 @@ def no_card():
         pytest.skip("a CUDA device is present: the default device is usable")
 
 
-def test_entry_points_default_to_the_card_and_raise_without_one(no_card):
+def test_entry_points_default_to_the_card_and_raise_without_one(no_card,
+                                                               tmp_path):
     cfg = ht.SlamConfig(map=ht.MapConfig(size_x=64, size_y=64, levels=2))
     with pytest.raises(RuntimeError, match="cuda"):
         ht.init_state(cfg)
@@ -97,6 +105,15 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_card):
             cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         init_log_odds_pyramid(cfg.map)
+    ckpt = str(tmp_path / "state.npz")
+    ht.save_state(ckpt, ht.init_state(cfg, device="cpu"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        ht.load_state(ckpt, cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ht.distance_to_obstacle_batch(np.zeros((8, 8), np.int8),
+                                      np.zeros((1, 2), np.int32),
+                                      np.ones((1, 2), np.int32))
+    assert ht.load_state(ckpt, cfg, device="cpu").pose.device.type == "cpu"
     with pytest.raises(RuntimeError, match="cuda"):
         probes.workloads("mm")
     with pytest.raises(RuntimeError, match="cuda"):
