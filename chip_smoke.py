@@ -15,11 +15,23 @@ the main path through the entry points a user calls:
      the tail masked, some beams beyond the map edge): moments within
      1e-5 of each hypothesis's largest |moment|, used counts exactly
      equal, two launches bit-identical;
-  4. sequential SLAM — the 435-scan corridor fixture on BENCH_CONFIG,
-     held against the committed JAX reference trajectory
-     (tests/fixtures/corridor_jax_reference.npz): every gate equal, equal
-     update counts, pose RMSE < 5 mm; one paint launch per gated update
-     (its six cell sets in one table);
+  4. sequential SLAM — the 435-scan corridor fixture on BENCH_CONFIG
+     through run_log (on the card each map update paints the
+     segment-compacted free sets), held against the committed JAX
+     reference trajectory (tests/fixtures/corridor_jax_reference.npz):
+     every gate equal, equal update counts, pose RMSE < 5 mm; one paint
+     launch per gated update (its six cell sets in one table); then the
+     same scans twice through slam_step(raster_backend="xla") (the dense
+     sets) and once more with the default: poses, gates and final maps
+     bit-equal, one paint launch per gated update; ms and scans/s of each
+     replay in call order, and each route's stream syncs per
+     gated update and per other scan (torch's CUDA sync debug mode, over
+     the first SYNC_COUNT_SCANS scans, untimed); then seg vs dense: a
+     mid-log gated update level by level, the compacted free set within
+     its budget and past FORCED_BUDGET (the dense fallback) against the
+     dense set, painted grids, occupied sets and truncated counts equal;
+     segments, budget, slots and index bytes per level, and the whole
+     update_pyramid call of each route, host-fed, in turns;
   5. session — the SlamSession entry point on the same fixture, stamps
      t x 0.025 s: session A (timing_mode "step") through process_ranges,
      poses bit-equal to run_log's, gates and RMSE as in 4, one paint
@@ -53,7 +65,9 @@ the main path through the entry points a user calls:
      paint launch per update;
   9. paint vs plain — paint_cell_sets at the probe's own workload (1024^2,
      65,536 random cells), at one update of each of the three
-     map-update paths above (its six cell sets) and at one rank's first
+     map-update paths above (its six cell sets; the sequential update
+     both as the compacted sets run_log and the session paint,
+     ``sequential_seg``, and as the dense ones) and at one rank's first
      update in phase 12 (row 0, column 0: 32 robots x 576 beams into
      their own grids, 16 robots x 1,152 beams into the shared one, the
      blocks shard_scan and shard_shared_fleet_scan give it): grids
@@ -138,6 +152,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 REL_TOL = 1e-5          # kernel vs plain, relative to max |moment| per hyp
 RMSE_BUDGET_M = 0.005   # port vs JAX pose RMSE, 435-scan sequential replay
+SYNC_COUNT_SCANS = 100  # scans whose stream syncs are counted, per route
+FORCED_BUDGET = 4       # segments: every level takes the dense fallback
+UPDATE_REPS = 50        # timed update_pyramid calls per route and turn
 SHARED_RMSE_M = 1e-4    # port vs JAX pose RMSE, shared fleet (see its tests)
 FLEET_ROBOTS = 64       # BASELINE config 5: 64 parallel trajectories
 FLEET_STEPS = 25        # one untimed warm-up step, then 24 timed
@@ -390,7 +407,69 @@ def phase_kernel_vs_plain(dev):
     return worst_abs
 
 
+def count_host_syncs(fn):
+    """(fn(), one "site" per stream synchronisation it made): the
+    warnings of torch's CUDA sync debug mode, which fire on every
+    device->host read and every host->device copy from pageable memory.
+    A site is the innermost line of the repository on the Python stack,
+    with the innermost line outside it where that differs."""
+    import traceback
+    import warnings
+    sites = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" not in str(message):
+            return
+        stack = [f for f in traceback.extract_stack()[:-1]
+                 if f.filename != warnings.__file__]
+        ours = [f for f in stack if f.filename.startswith(str(ROOT))]
+        site = (f"{Path(ours[-1].filename).relative_to(ROOT)}:"
+                f"{ours[-1].lineno}" if ours else "?")
+        if stack and stack[-1] is not (ours[-1] if ours else None):
+            site += (f" via {Path(stack[-1].filename).name}:"
+                     f"{stack[-1].lineno} {stack[-1].name}")
+        sites.append(site)
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        sites.clear()   # the first switch in a process synchronises once
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sites
+
+
+def host_syncs(step, state, scans, count):
+    """Stream synchronisations per gated update and per other scan over
+    the first ``count`` scans through ``step(state, scan)``, each scan
+    counted alone (untimed), and their sites, summed over the gated
+    updates and over the other scans."""
+    from collections import Counter
+    syncs = {True: [], False: []}
+    sites = {True: Counter(), False: Counter()}
+    for t in range(count):
+        (state, m), where = count_host_syncs(lambda: step(state, scans[t]))
+        gated = bool(m.map_updated)
+        syncs[gated].append(len(where))
+        sites[gated].update(where)
+    return dict(per_gated_update=sorted(set(syncs[True])),
+                per_other_scan=sorted(set(syncs[False])),
+                gated_updates=len(syncs[True]),
+                gated_sites=dict(sites[True]), other_sites=dict(sites[False]))
+
+
 def phase_sequential(kernels):
+    """run_log over the corridor fixture (on the card the map update
+    paints segment-compacted free sets), held against the JAX reference;
+    then the same scans twice through slam_step with raster_backend="xla"
+    (the dense sets) and once more with the default, each agreeing bit
+    for bit (run_log, xla, xla, seg: each route once early and once
+    late in the call, for the rates); then each route's stream syncs per
+    scan over the first SYNC_COUNT_SCANS scans."""
     import hector_slam_tpu_torch as ht
     ref = np.load(ROOT / "tests" / "fixtures" / "corridor_jax_reference.npz")
     ranges, laser, _ = ht.load_log(
@@ -398,16 +477,65 @@ def phase_sequential(kernels):
     cfg = ht.BENCH_CONFIG
     scans = ht.stack_scans([ht.scan_from_ranges(
         r, cfg.map.level_scale(0), laser, cfg.max_beams) for r in ranges])
+    one = [ht.Scan(scans.points[t], scans.origo[t], scans.mask[t])
+           for t in range(len(ranges))]
     state = ht.init_state(cfg)
     reset_counts(kernels)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    state, poses, metrics = ht.run_log(state, scans, cfg)
+    state, poses_t, metrics = ht.run_log(state, scans, cfg)
     end.record()
     launches = read_counts(kernels)
     ms = start.elapsed_time(end)
-    poses = poses.cpu().numpy()
+
+    def seg_step(st, sc):
+        return ht.slam_step(st, sc, cfg)
+
+    def xla_step(st, sc):
+        return ht.slam_step(st, sc, cfg, raster_backend="xla")
+
+    def replay(step):
+        """(bit-equal to run_log's, ms, launches, host split) of a
+        slam_step loop. The split is on the host clock, scan by scan: a
+        scan's update is queued when its step returns and waited for at
+        the next scan's first sync, so a gated scan is counted with the
+        scan after it."""
+        st, poses, gates, stamps = ht.init_state(cfg), [], [], []
+        reset_counts(kernels)
+        start.record()
+        for sc in one:
+            st, m = step(st, sc)
+            poses.append(st.pose)
+            gates.append(m.map_updated)
+            stamps.append(time.perf_counter())
+        end.record()
+        counts = read_counts(kernels)
+        gated = torch.stack(gates)
+        equal = (torch.equal(torch.stack(poses), poses_t)
+                 and torch.equal(gated, metrics.map_updated)
+                 and all(torch.equal(a, b)
+                         for a, b in zip(state.log_odds, st.log_odds)))
+        gated = gated.cpu().numpy()
+        took = np.diff(np.asarray(stamps)) * 1e3     # took[t-1]: scan t
+        quiet = ~gated[:-1] & ~gated[1:]             # t and t-1 not gated
+        hit = np.flatnonzero(gated[1:-1]) + 1        # gated scans t
+        split = dict(other_scan_ms_p50=float(np.median(took[quiet])),
+                     gated_scan_and_next_ms_mean=float(np.mean(
+                         took[hit - 1] + took[hit])))
+        return equal, start.elapsed_time(end), counts, split
+
+    xla_equal, xla_ms, xla_launches, xla_split = replay(xla_step)
+    xla_equal_2, xla_ms_2, _, xla_split_2 = replay(xla_step)
+    seg_equal_2, seg_ms_2, _, seg_split_2 = replay(seg_step)
+    replays_equal = xla_equal and xla_equal_2 and seg_equal_2
+    syncs = {
+        "seg": host_syncs(seg_step, ht.init_state(cfg), one,
+                          SYNC_COUNT_SCANS),
+        "xla": host_syncs(xla_step, ht.init_state(cfg), one,
+                          SYNC_COUNT_SCANS)}
+
+    poses = poses_t.cpu().numpy()
     gates = metrics.map_updated.cpu().numpy()
     rmse = float(np.sqrt(np.mean((poses[:, :2] - ref["poses"][:, :2]) ** 2)))
     yaw_rmse = float(np.sqrt(np.mean(
@@ -419,22 +547,89 @@ def phase_sequential(kernels):
     ok = (gate_agree == len(gates) and count == int(ref["map_update_count"])
           and rmse < RMSE_BUDGET_M and trunc == 0
           and np.isfinite(poses).all() and poses.shape == ref["poses"].shape
-          and launches["paint_cells"] == paints)
+          and launches["paint_cells"] == paints
+          and xla_launches["paint_cells"] == paints and replays_equal
+          # the seg route adds one sync per gated update and none elsewhere
+          and syncs["seg"]["per_other_scan"] == syncs["xla"]["per_other_scan"]
+          and max(syncs["seg"]["per_gated_update"])
+          <= max(syncs["xla"]["per_gated_update"]) + 1)
     emit("sequential_slam", ok=ok, scans=len(gates), ms=ms,
          scans_per_s=len(gates) / (ms / 1e3), gate_agreement=gate_agree,
          map_update_count=count, jax_map_update_count=int(
              ref["map_update_count"]), pose_rmse_m=rmse,
          yaw_rmse_rad=yaw_rmse, max_pose_diff=float(
              np.abs(poses - ref["poses"]).max()), truncated_free_cells=trunc,
-         kernel_launches=launches, expected_paint_launches=paints)
+         kernel_launches=launches, expected_paint_launches=paints,
+         xla_replay=dict(ms=xla_ms, scans_per_s=len(gates) / (xla_ms / 1e3),
+                         kernel_launches=xla_launches),
+         replays_bit_equal_to_run_log=replays_equal,
+         rates_in_call_order={
+             "seg run_log": len(gates) / (ms / 1e3),
+             "xla": len(gates) / (xla_ms / 1e3),
+             "xla again": len(gates) / (xla_ms_2 / 1e3),
+             "seg slam_step": len(gates) / (seg_ms_2 / 1e3)},
+         host_split_in_call_order={"xla": xla_split,
+                                   "xla again": xla_split_2,
+                                   "seg slam_step": seg_split_2},
+         host_syncs=dict(syncs, scans=SYNC_COUNT_SCANS))
     if not ok:
-        raise SystemExit("sequential SLAM disagrees with the JAX reference")
+        raise SystemExit("sequential SLAM disagrees with the JAX reference "
+                         "or with its dense-set replays, or its seg route "
+                         "adds more than one host sync per gated update")
     # one gated update's paint inputs: a mid-log scan at its matched pose
     gated = np.flatnonzero(gates)
     t = int(gated[len(gated) // 2])
-    return launches, poses, (torch.from_numpy(poses[t]).to(
-        scans.points.device), ht.Scan(scans.points[t], scans.origo[t],
-                                      scans.mask[t]))
+    return launches, xla_launches, poses, (poses_t[t], one[t])
+
+
+def phase_seg_vs_dense(pose, scan):
+    """One gated update of the sequential replay, level by level: the
+    segment-compacted free set (within its budget, then with
+    budget_segments=FORCED_BUDGET, which takes the dense fallback) and
+    the dense one, both painted by the kernel, must give equal grids,
+    occupied sets and truncated counts."""
+    import hector_slam_tpu_torch as ht
+    from hector_slam_tpu_torch.core.mapping import (
+        cell_indices, rasterize_scan, rasterize_scan_seg, seg_cell_indices)
+    from hector_slam_tpu_torch.core.matcher import level_points
+    cfg = ht.BENCH_CONFIG
+    rows = []
+    for level in range(cfg.map.levels):
+        sx, sy = cfg.map.level_size(level)
+        args = ((sy, sx), pose, level_points(scan.points, level),
+                level_points(scan.origo, level), scan.mask,
+                cfg.map.top_left_offset, cfg.map.level_scale(level),
+                cfg.level_max_ray_cells(level))
+        free, _, _, _, total, budget = seg_cell_indices(*args)
+        dense_free = cell_indices(*args)[0]
+        dense = rasterize_scan(*args)
+        total = int(total)
+        equal = {b: all(torch.equal(a, d) for a, d in zip(
+            rasterize_scan_seg(*args, budget_segments=b), dense))
+            for b in (0, FORCED_BUDGET)}
+        rows.append(dict(
+            level=level, segments=total, budget=budget,
+            fallback=total > budget, forced_fallback=total > FORCED_BUDGET,
+            seg_slots=free.numel(), dense_slots=dense_free.numel(),
+            seg_index_bytes=4 * free.numel(),
+            dense_index_bytes=4 * dense_free.numel(),
+            free_cells=int(dense[0].sum()), occupied_cells=int(dense[1].sum()),
+            equal=equal[0], forced_fallback_equal=equal[FORCED_BUDGET]))
+    ok = all(r["equal"] and r["forced_fallback_equal"] and r["forced_fallback"]
+             for r in rows)
+    # the whole update (index sets, the host read, paint, log-odds) per
+    # call, host-fed, in the order seg, xla, xla, seg
+    levels = ht.init_state(cfg).log_odds
+    order = ("seg", "xla", "xla", "seg")
+    update_ms = [cuda_ms(lambda: ht.update_pyramid(
+        levels, pose, scan, cfg, raster_backend=b), UPDATE_REPS) for b in order]
+    emit("seg_vs_dense", ok=ok, tolerance="exact",
+         forced_budget=FORCED_BUDGET, levels=rows,
+         update_pyramid_ms_host_fed=dict(order=order, ms=update_ms,
+                                         reps=UPDATE_REPS))
+    if not ok:
+        raise SystemExit("the segment-compacted sets differ from the dense "
+                         "ones")
 
 
 def yaw_err(a, b) -> float:
@@ -878,19 +1073,31 @@ def phase_shared_fleet(kernels):
 
 def paint_index_sets(cfg, poses, scan, layout):
     """(names, indices i32, num_cells) of the six cell sets one map update
-    paints at these poses: one scan (``single``), R scans into per-robot
-    grids (``per_robot``) or into one shared grid (``shared``)."""
-    from hector_slam_tpu_torch.core.mapping import cell_indices
+    paints at these poses: one scan's dense sets (``single``) or its
+    segment-compacted ones (``seg``, the dense free set on a level past
+    its budget), R scans into per-robot grids (``per_robot``) or into one
+    shared grid (``shared``)."""
+    from hector_slam_tpu_torch.core.mapping import _seg_pairs, cell_indices
     from hector_slam_tpu_torch.core.matcher import level_points
-    names, flats, sizes = [], [], []
+    shapes, inputs = [], []
     for level in range(cfg.map.levels):
         sx, sy = cfg.map.level_size(level)
-        free, occ, n, _ = cell_indices(
-            (sy, sx), poses, level_points(scan.points, level),
-            level_points(scan.origo, level), scan.mask,
-            cfg.map.top_left_offset, cfg.map.level_scale(level),
-            cfg.level_max_ray_cells(level), layout == "per_robot")
-        for kind, flat in (("free", free), ("occupied", occ)):
+        shapes.append((sy, sx))
+        inputs.append((poses, level_points(scan.points, level),
+                       level_points(scan.origo, level), scan.mask,
+                       cfg.map.top_left_offset, cfg.map.level_scale(level),
+                       cfg.level_max_ray_cells(level)))
+    if layout == "seg":
+        pairs = _seg_pairs(shapes, inputs)[0]
+        cells = [sy * sx for sy, sx in shapes]
+    else:
+        built = [cell_indices(shape, *args, layout == "per_robot")
+                 for shape, args in zip(shapes, inputs)]
+        pairs = [b[:2] for b in built]
+        cells = [b[2] for b in built]
+    names, flats, sizes = [], [], []
+    for level, (pair, n) in enumerate(zip(pairs, cells)):
+        for kind, flat in zip(("free", "occupied"), pair):
             names.append(f"L{level} {kind}")
             flats.append(flat.reshape(-1).contiguous())
             sizes.append(n)
@@ -1457,8 +1664,10 @@ def run_paths(dev):
                "dyn_slice": dyn_slice, "paint_runs": paint_runs}
     abs_kvp = phase_kernel_vs_plain(dev)
     paths, paint_inputs = {}, {}
-    paths["sequential"], run_log_poses, (pose, scan) = phase_sequential(
-        kernels)
+    (paths["sequential"], paths["sequential_xla"], run_log_poses,
+     (pose, scan)) = phase_sequential(kernels)
+    phase_seg_vs_dense(pose, scan)
+    paint_inputs["sequential_seg"] = ("seg", pose, scan)
     paint_inputs["sequential"] = ("single", pose, scan)
     paths["session"] = phase_session(kernels, run_log_poses)
     paths["batched"], levels, abs_main, hyp_inputs = phase_batched(
@@ -1486,10 +1695,13 @@ def run_paths(dev):
         return sum(lv[key] * lv["gn_steps"] for lv in levels) / total
 
     # paint: each update shape weighted by the launches painting it (one
-    # per update); the NCCL rank paints the whole fleet, the gloo ranks
-    # their blocks
-    weights = {p: paths[p]["paint_cells"]
-               for p in ("sequential", "fleet", "shared_fleet")}
+    # per update); run_log and the session paint the compacted sets, the
+    # "xla" replay the dense ones; the NCCL rank paints the whole fleet,
+    # the gloo ranks their blocks
+    weights = {p: paths[p]["paint_cells"] for p in ("fleet", "shared_fleet")}
+    weights["sequential_seg"] = (paths["sequential"]["paint_cells"]
+                                 + paths["session"]["paint_cells"])
+    weights["sequential"] = paths["sequential_xla"]["paint_cells"]
     weights["fleet"] += sharded_paints["nccl"]
     weights["sharded"] = sharded_paints["fleet"]
     weights["sharded_shared"] = sharded_paints["shared_fleet"]

@@ -18,6 +18,12 @@ one paint call per update, like one scan: each set goes into one [H*W]
 grid (a shared map: painting every gated robot's cells into one grid IS
 the OR over robots), or, for per-robot maps, into one [R*H*W] grid with
 robot r's cells offset by r*H*W.
+
+One scan's free set has a second layout, the segment-compacted one
+(``raster_backend="seg"``, the JAX package's ``rasterize_scan_seg``):
+the valid 64-cell beam segments are compacted first, so the set holds
+about as many slots as the scan has free cells instead of one slot per
+possible cell of every beam. Both layouts give the same cells.
 """
 
 from __future__ import annotations
@@ -151,6 +157,12 @@ def _truncated_count(p: _RayParams, max_ray_cells: int) -> torch.Tensor:
         torch.int32)
 
 
+def _occupied_flat(p: _RayParams, num_cells: int) -> torch.Tensor:
+    sentinel = torch.full((), num_cells, dtype=torch.int32,
+                          device=p.valid.device)
+    return torch.where(p.valid, p.end_offset, sentinel)
+
+
 def cell_indices(
     grid_shape: Tuple[int, int],
     pose_world: torch.Tensor,    # f32[3] or f32[R, 3]
@@ -179,11 +191,126 @@ def cell_indices(
         num_cells *= r
     p = _bresenham_params(grid_shape, pose_world, scan_points, scan_origo,
                           scan_mask, offset, scale, base)
-    sentinel = torch.full((), num_cells, dtype=torch.int32,
-                          device=p.valid.device)
     return (_dense_free_flat(p, num_cells, max_ray_cells),
-            torch.where(p.valid, p.end_offset, sentinel), num_cells,
+            _occupied_flat(p, num_cells), num_cells,
             _truncated_count(p, max_ray_cells))
+
+
+_SEG = 64   # cells per compacted beam segment
+
+
+def seg_budget(n_beams: int, max_ray_cells: int,
+               budget_segments: int = 0) -> Tuple[int, int]:
+    """(segments per beam, segment budget) of a scan of ``n_beams``: the
+    JAX package's rule (hector_slam_tpu/core/mapping.py:235-237), a sixth
+    of the dense slots floored at 1.25 x n_beams, unless
+    ``budget_segments`` > 0 sets the budget. Python ints of the static
+    shapes."""
+    k_seg = -(-max_ray_cells // _SEG)
+    if budget_segments <= 0:
+        budget_segments = max(8, n_beams + (n_beams >> 2),
+                              (n_beams * k_seg) // 6)
+    return k_seg, budget_segments
+
+
+def seg_cell_indices(
+    grid_shape: Tuple[int, int],
+    pose_world: torch.Tensor,    # f32[3]
+    scan_points: torch.Tensor,   # f32[N, 2] this level's scaled points
+    scan_origo: torch.Tensor,    # f32[2]
+    scan_mask: torch.Tensor,     # bool[N]
+    offset,
+    scale,
+    max_ray_cells: int,
+    budget_segments: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, int, torch.Tensor, torch.Tensor,
+           int]:
+    """``cell_indices`` of one scan with the free set compacted by
+    segments: (free i32[budget, 64], occupied i32[N], num_cells,
+    truncated i32[], segment total i32[], budget).
+
+    Each valid beam paints ``min(abs_da, max_ray_cells)`` cells, cut into
+    64-cell segments; the segments are numbered in beam order by a
+    cumsum and the first ``budget`` of them found by a searchsorted, so
+    slot (s, j) holds cell j of segment s (the JAX package's
+    ``rasterize_scan_seg``, hector_slam_tpu/core/mapping.py:239-268).
+    Slots past the total or a beam's length hold the sentinel
+    ``num_cells``. When the total exceeds the budget the set misses
+    segments: the caller must then paint the dense set
+    (``cell_indices``) instead, as ``_seg_pairs`` does."""
+    if pose_world.dim() != 1:
+        raise ValueError("the segment-compacted free set takes one scan "
+                         f"(pose f32[3]), got poses {tuple(pose_world.shape)}")
+    num_cells = grid_shape[0] * grid_shape[1]
+    n_beams = scan_points.shape[0]
+    k_seg, budget = seg_budget(n_beams, max_ray_cells, budget_segments)
+    p = _bresenham_params(grid_shape, pose_world, scan_points, scan_origo,
+                          scan_mask, offset, scale)
+    dev = p.abs_da.device
+    abs_da_safe = torch.clamp(p.abs_da, min=1)
+    err0 = p.abs_da // 2
+    length = torch.clamp(p.abs_da, max=max_ray_cells)  # painted cells/beam
+
+    # valid segments per beam: ceil(length/SEG); compact (beam, seg) ids
+    n_seg = torch.where(p.valid, (length + (_SEG - 1)) // _SEG,
+                        torch.zeros_like(length))                  # [N]
+    seg_valid = (torch.arange(k_seg, dtype=torch.int32, device=dev)
+                 < n_seg[:, None])                                 # [N, Ks]
+    pos = torch.cumsum(seg_valid.reshape(-1).to(torch.int32), 0,
+                       dtype=torch.int32)
+    total = pos[-1]
+    flat_ids = torch.clamp(torch.searchsorted(pos, torch.arange(
+        1, budget + 1, dtype=torch.int32, device=dev)),
+        max=n_beams * k_seg - 1)
+    slot_ok = torch.arange(budget, device=dev) < total
+    b_i = flat_ids // k_seg
+    j = ((flat_ids % k_seg).to(torch.int32)[:, None] * _SEG
+         + torch.arange(_SEG, dtype=torch.int32, device=dev))      # [B, SEG]
+    minor = (err0[b_i][:, None] + j * p.abs_db[b_i][:, None]) \
+        // abs_da_safe[b_i][:, None]
+    flat = (p.start_offset + j * p.offset_a[b_i][:, None]
+            + minor * p.offset_b[b_i][:, None])
+    keep = slot_ok[:, None] & (j < length[b_i][:, None])
+    free = torch.where(keep, flat, torch.full((), num_cells,
+                                              dtype=torch.int32, device=dev))
+    return (free, _occupied_flat(p, num_cells), num_cells,
+            _truncated_count(p, max_ray_cells), total, budget)
+
+
+def _seg_pairs(grid_shapes, level_inputs, budget_segments=0):
+    """Each level's segment-compacted (free, occupied) index pair and
+    truncated cells, for one scan. A level whose segment total exceeds
+    its budget takes its dense free set instead (the JAX package's
+    ``lax.cond``, hector_slam_tpu/core/mapping.py:270-273): the totals
+    of all levels come to the host in one read."""
+    built = [seg_cell_indices(shape, *inputs, budget_segments=budget_segments)
+             for shape, inputs in zip(grid_shapes, level_inputs)]
+    totals = torch.stack([b[4] for b in built]).tolist()   # one host read
+    pairs = [((free if total <= budget
+               else cell_indices(shape, *inputs)[0]), occ)
+             for shape, inputs, (free, occ, _, _, _, budget), total
+             in zip(grid_shapes, level_inputs, built, totals)]
+    return pairs, [b[3] for b in built]
+
+
+def pick_raster_backend(raster_backend, device: torch.device,
+                        beam_axis=None, one_scan: bool = True) -> str:
+    """The free-set layout of an update: "seg" (segment-compacted) or
+    "xla" (the JAX package's name for the dense layout). ``None`` is the
+    JAX package's auto rule (hector_slam_tpu/core/mapping.py:312-314)
+    with the card as the accelerator: "seg" for one scan on a CUDA
+    device with no ``beam_axis``, "xla" otherwise. An explicit "seg"
+    takes one scan only (``one_scan``: no robot axis and no gates)."""
+    if raster_backend is None:
+        return ("seg" if device.type == "cuda" and beam_axis is None
+                and one_scan else "xla")
+    if raster_backend not in ("seg", "xla"):
+        raise ValueError(f"raster_backend must be 'seg', 'xla' or None, got "
+                         f"{raster_backend!r}")
+    if raster_backend == "seg" and not one_scan:
+        raise ValueError("raster_backend='seg' takes one scan: a fleet's "
+                         "update paints the dense free sets")
+    return raster_backend
 
 
 def _level_sets(grid_shape, per_robot, pose_world, scan_points, scan_origo,
@@ -199,27 +326,30 @@ def _level_sets(grid_shape, per_robot, pose_world, scan_points, scan_origo,
 
 def _update_levels(storages, level_inputs, cell_model: str,
                    log_odds_free: float, log_odds_occupied: float,
-                   beam_axis=None):
+                   beam_axis=None, raster_backend=None):
     """Each storage updated with its level's scan inputs (pose, points,
     origo, mask, offset, scale, max_ray_cells): every level's index sets
-    first, then all of them painted in one call (and OR-combined over
-    ``beam_axis``), then each level updated. A storage with a leading
-    robot axis beyond the cell model's own is R maps. Returns (new
-    storages, this rank's truncated cells per level)."""
-    pairs, shapes, truncated = [], [], []
-    for lo, inputs in zip(storages, level_inputs):
-        pair, shape, trunc = _level_sets(
-            tuple(lo.shape[-2:]), lo.dim() > 1 + storage_channels(cell_model),
-            *inputs)
-        pairs.append(pair)
-        shapes.append(shape)
-        truncated.append(trunc)
+    first (their layout by ``pick_raster_backend``), then all of them
+    painted in one call (and OR-combined over ``beam_axis``), then each
+    level updated. A storage with a leading robot axis beyond the cell
+    model's own is R maps. Returns (new storages, this rank's truncated
+    cells per level)."""
+    per_robot = storages[0].dim() > 1 + storage_channels(cell_model)
+    one_scan = level_inputs[0][0].dim() == 1 and not per_robot
+    if pick_raster_backend(raster_backend, storages[0].device, beam_axis,
+                           one_scan) == "seg":
+        shapes = [tuple(lo.shape[-2:]) for lo in storages]
+        pairs, truncated = _seg_pairs(shapes, level_inputs)
+    else:
+        pairs, shapes, truncated = zip(*(
+            _level_sets(tuple(lo.shape[-2:]), per_robot, *inputs)
+            for lo, inputs in zip(storages, level_inputs)))
     new = tuple(
         apply_update(lo, free_set & ~occ_set, occ_set, cell_model,
                      log_odds_free, log_odds_occupied)
         for lo, (free_set, occ_set) in zip(
             storages, _paint_pairs(pairs, shapes, beam_axis)))
-    return new, truncated
+    return new, list(truncated)
 
 
 def rasterize_scan(
@@ -248,6 +378,29 @@ def rasterize_scan(
     return free_set, occ_set, truncated
 
 
+def rasterize_scan_seg(
+    grid_shape: Tuple[int, int],
+    pose_world: torch.Tensor,
+    scan_points: torch.Tensor,
+    scan_origo: torch.Tensor,
+    scan_mask: torch.Tensor,
+    offset,
+    scale,
+    max_ray_cells: int,
+    budget_segments: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``rasterize_scan`` of one scan through the segment-compacted free
+    set (``seg_cell_indices``; the budget as in ``seg_budget``): the same
+    (free_set bool[H, W], occ_set bool[H, W], truncated i32[]). Past the
+    budget the free set is the dense one, so the cells are always
+    ``rasterize_scan``'s; one host read of the segment total."""
+    [pair], [truncated] = _seg_pairs(
+        [grid_shape], [(pose_world, scan_points, scan_origo, scan_mask,
+                        offset, scale, max_ray_cells)], budget_segments)
+    [(free_set, occ_set)] = _paint_pairs([pair], [tuple(grid_shape)])
+    return free_set, occ_set, truncated
+
+
 def update_level(
     log_odds: torch.Tensor,
     pose_world: torch.Tensor,
@@ -259,7 +412,9 @@ def update_level(
     max_ray_cells: int,
     log_odds_free: float,
     log_odds_occupied: float,
+    beam_axis=None,
     cell_model: str = "log_odds",
+    raster_backend: str | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One update of one level. Returns (new storage, truncated cells
     i32[(R,)]).
@@ -269,11 +424,16 @@ def update_level(
     [R, 2, H, W] for reflectance) is R maps, scan r updating map r; else
     the R scans update the one map together. A robot whose mask is all
     False leaves its cells as they were. Its two sets are one paint
-    call."""
+    call.
+
+    ``beam_axis`` and the truncated count as in ``update_pyramid``;
+    ``raster_backend`` as in ``pick_raster_backend`` (the JAX package's
+    ``update_level`` parameters, in its order)."""
     [new], [truncated] = _update_levels(
         [log_odds], [(pose_world, scan_points, scan_origo, scan_mask, offset,
                       scale, max_ray_cells)],
-        cell_model, log_odds_free, log_odds_occupied)
+        cell_model, log_odds_free, log_odds_occupied, beam_axis,
+        raster_backend)
     return new, truncated
 
 
@@ -282,8 +442,10 @@ def update_pyramid(
     pose_world: torch.Tensor,
     scan: Scan,
     cfg: SlamConfig,
-    gates: torch.Tensor | None = None,
     beam_axis=None,
+    raster_backend: str | None = None,
+    *,
+    gates: torch.Tensor | None = None,
 ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
     """MapRepMultiMap::updateByScan (MapRepMultiMap.h:134-147): every level
     updated independently with its 2^-level-scaled scan. Returns (new
@@ -308,7 +470,14 @@ def update_pyramid(
     323-328): the beam shards of the same scans, or the robot shards of a
     shared-map fleet (parallel/shared_map.py). The truncated counts stay
     this rank's: the caller sums them over the group (per robot for beam
-    shards, the fleet's total for robot shards)."""
+    shards, the fleet's total for robot shards).
+
+    ``raster_backend``: the free sets' layout, "seg" (compacted by
+    segments, one scan only) or "xla" (dense); None picks "seg" for one
+    scan on the card with no ``beam_axis`` and no ``gates``, else "xla"
+    (``pick_raster_backend``). Both paint the same cells. "seg" reads the
+    levels' segment totals to the host once per update, to paint a
+    level's dense set where its total exceeds the budget."""
     mcfg = cfg.map
     mask = scan.mask if gates is None else scan.mask & gates[:, None]
     new, truncated = _update_levels(
@@ -318,7 +487,7 @@ def update_pyramid(
           mcfg.level_scale(level), cfg.level_max_ray_cells(level))
          for level in range(len(log_odds_pyramid))],
         cfg.update.cell_model, cfg.update.log_odds_free,
-        cfg.update.log_odds_occupied, beam_axis)
+        cfg.update.log_odds_occupied, beam_axis, raster_backend)
     truncated_total = torch.zeros(pose_world.shape[:-1], dtype=torch.int32,
                                   device=scan.points.device)
     for t in truncated:

@@ -4,7 +4,8 @@ Counterpart of ``hector_slam_tpu/core/slam.py`` (HectorSlamProcessor,
 slam_main/HectorSlamProcessor.h:52-139). ``slam_step`` is a function
 ``(SlamState, Scan) -> (SlamState, StepMetrics)``; the JAX package's two
 ``lax.cond`` on the gate become one host branch, so each scan costs one
-device->host sync (the gate bit).
+device->host sync (the gate bit), and a gated update of segment-compacted
+sets one more (the levels' segment totals, ``core/mapping._seg_pairs``).
 
 Replicated behaviours:
   - map_without_matching accepts the pose hint verbatim and forces the map
@@ -89,11 +90,13 @@ def update_phase(
     hessian: torch.Tensor,
     map_without_matching: bool = False,
     beam_axis=None,
+    raster_backend: Optional[str] = None,
 ) -> Tuple[SlamState, StepMetrics]:
     """The gate -> conditional map update -> state assembly half of
     ``slam_step`` (HectorSlamProcessor.h:89-113; the JAX package's
     ``_finish_step`` / ``update_phase_jit``). ``map_without_matching``
-    forces the update (:89). ``beam_axis``: see ``slam_step``."""
+    forces the update (:89). ``beam_axis``, ``raster_backend``: see
+    ``slam_step``."""
     if map_without_matching:
         do_update = torch.ones((), dtype=torch.bool, device=new_pose.device)
     else:
@@ -106,7 +109,7 @@ def update_phase(
     # issue the update's collectives together
     if bool(do_update):   # the one host sync per scan
         new_log_odds, truncated = update_pyramid(
-            state.log_odds, new_pose, scan, cfg, beam_axis=beam_axis)
+            state.log_odds, new_pose, scan, cfg, beam_axis, raster_backend)
         truncated = psum(truncated, beam_axis)
         new_last_update_pose = new_pose
         # refresh the cached quads only when the map changed (the
@@ -145,6 +148,7 @@ def slam_step(
     pose_hint: Optional[torch.Tensor] = None,
     map_without_matching: bool = False,
     beam_axis=None,
+    raster_backend: Optional[str] = None,
 ) -> Tuple[SlamState, StepMetrics]:
     """One scan update (HectorSlamProcessor::update, :71-113): the two
     phases chained, so ``SlamSession(timing_mode="phases")`` computes what
@@ -153,11 +157,15 @@ def slam_step(
     ``beam_axis``: the ``torch.distributed`` process group over which the
     scan's beams are sharded (None: unsharded; parallel/sharded.py): the
     normal equations, the empty-scan test, the painted cell sets, the
-    truncated and valid-beam counts are combined over it."""
+    truncated and valid-beam counts are combined over it.
+    ``raster_backend``: the map update's free-set layout
+    (``core/mapping.update_pyramid``); None paints segment-compacted sets
+    on the card without ``beam_axis``, dense ones elsewhere. Same cells
+    either way."""
     new_pose, hessian = match_phase(state, scan, cfg, pose_hint,
                                     map_without_matching, beam_axis)
     return update_phase(state, scan, cfg, new_pose, hessian,
-                        map_without_matching, beam_axis)
+                        map_without_matching, beam_axis, raster_backend)
 
 
 def run_log(state: SlamState, scans: Scan, cfg: SlamConfig):

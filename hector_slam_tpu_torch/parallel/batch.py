@@ -114,7 +114,7 @@ def fleet_step(
     # take this branch together (see slam.update_phase)
     if bool(gates.any()):   # the one host sync per step
         new_log_odds, truncated = update_pyramid(
-            states.log_odds, new_pose, scans, cfg, gates, beam_axis)
+            states.log_odds, new_pose, scans, cfg, beam_axis, gates=gates)
         truncated = psum(truncated, beam_axis)
         # non-gated robots' maps are unchanged, so their quads come out
         # as they were

@@ -102,7 +102,7 @@ def shared_fleet_step(
     any_gate = bool(any_gate)   # the one host sync per step
     if any_gate:
         new_log_odds, truncated = update_pyramid(
-            state.log_odds, new_poses, scans, cfg, gates, robot_axis)
+            state.log_odds, new_poses, scans, cfg, robot_axis, gates=gates)
         truncated_total = psum(truncated.sum().to(torch.int32), robot_axis)
         new_quads = quads_of(new_log_odds, cfg.update.cell_model)
     else:

@@ -353,6 +353,96 @@ TINY_TERM_CASES = [("zero_tiles", 1), ("zero_tiles", 0), ("half_zero", 1),
                    ("half_zero", 0)]
 
 
+def _corridor_scans(dev, cfg, steps=4):
+    """A corridor drive with the 271-beam laser of the seg tests of
+    tests/test_mapping.py: (poses f32[steps, 3], scans on ``dev``)."""
+    laser = ht.LaserModel(num_beams=271, angle_min=-2.356,
+                          angle_increment=4 * 0.004363, range_min=0.1,
+                          range_max=12.0)
+    poses = np.zeros((steps, 3), np.float32)
+    poses[:, 0] = np.arange(steps) * 0.06
+    poses[:, 1] = 0.03 * np.sin(np.arange(steps))
+    ranges = simulate_trajectory(World.corridor(length=8.0, width=3.0),
+                                 poses, laser, range_noise_std=0.0)
+    return poses, [ht.scan_from_ranges(r, cfg.map.level_scale(0), laser,
+                                       cfg.max_beams, device=dev)
+                   for r in ranges]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_cap", [256, 40])
+@pytest.mark.parametrize("budget", [0, 4])
+def test_seg_sets_equal_dense_sets_on_card(cuda_device, k_cap, budget):
+    """The segment-compacted free set painted by the kernel equals the
+    dense one, inside the budget and past it (budget 4: every scan takes
+    the dense fallback), with truncation (k_cap 40) and without; the
+    occupied sets and truncated counts too, and both equal the CPU's."""
+    from hector_slam_tpu_torch.core import mapping as tmap
+    cfg = ht.SlamConfig(map=ht.MapConfig(resolution=0.05, size_x=256,
+                                         size_y=256, levels=1),
+                        max_ray_cells=256)
+    poses, scans = _corridor_scans(cuda_device, cfg)
+    for pose, sc in zip(poses, scans):
+        args = ((256, 256), torch.from_numpy(pose).to(cuda_device),
+                sc.points, sc.origo, sc.mask, cfg.map.top_left_offset,
+                cfg.map.level_scale(0), k_cap)
+        *_, total, cap = tmap.seg_cell_indices(*args, budget_segments=budget)
+        assert (int(total) > cap) == (budget == 4)
+        seg = tmap.rasterize_scan_seg(*args, budget_segments=budget)
+        dense = tmap.rasterize_scan(*args)
+        cpu = tmap.rasterize_scan_seg(*(a.cpu() if torch.is_tensor(a) else a
+                                        for a in args),
+                                      budget_segments=budget)
+        for a, b, c in zip(seg, dense, cpu):
+            assert torch.equal(a, b)
+            assert torch.equal(a.cpu(), c)
+        assert seg[0].any() and seg[1].any()
+
+
+@pytest.mark.cuda
+def test_slam_step_paints_seg_sets_on_card(cuda_device, monkeypatch):
+    """On the card slam_step with no raster_backend paints the compacted
+    free sets ([budget, 64] slots, one paint launch per gated update),
+    and its maps equal a "xla" replay's and the CPU's."""
+    from hector_slam_tpu_torch.core import mapping as tmap
+    cfg = ht.SlamConfig(map=ht.MapConfig(resolution=0.05, size_x=256,
+                                         size_y=256, levels=2),
+                        max_ray_cells=256)
+    poses, scans = _corridor_scans(cuda_device, cfg)
+    shapes = []
+    paint = tmap.paint_cell_sets
+
+    def spy(flats, sizes):
+        shapes.append([tuple(f.shape) for f in flats])
+        return paint(flats, sizes)
+
+    monkeypatch.setattr(tmap, "paint_cell_sets", spy)
+    states = {}
+    for backend, dev in ((None, cuda_device), ("xla", cuda_device),
+                         (None, torch.device("cpu"))):
+        state = ht.init_state(cfg, device=dev)
+        before = pc.paint_cells.launches
+        for pose, sc in zip(poses, scans):
+            state, _ = ht.slam_step(
+                state, ht.Scan(*(f.to(dev) for f in sc)), cfg,
+                pose_hint=torch.from_numpy(pose).to(dev),
+                map_without_matching=True, raster_backend=backend)
+        if dev.type == "cuda":
+            assert pc.paint_cells.launches == before + len(poses)
+        states[(backend, dev.type)] = state
+    seg_shapes = shapes[:len(poses)]
+    budgets = [tmap.seg_budget(cfg.max_beams, cfg.level_max_ray_cells(lv))[1]
+               for lv in range(cfg.map.levels)]
+    assert all(sets[0::2] == [(b, 64) for b in budgets]
+               for sets in seg_shapes)
+    assert all(sets[0][1] == cfg.level_max_ray_cells(0)
+               for sets in shapes[len(poses):])
+    seg = states[(None, "cuda")]
+    for other in (states[("xla", "cuda")], states[(None, "cpu")]):
+        for a, b in zip(seg.log_odds, other.log_odds):
+            assert torch.equal(a.cpu(), b.cpu())
+
+
 def sum_order_inputs(mode):
     """A 256^2 grid of 2**24 and 1.0 values, where any other order of a
     patch element's adds rounds differently, and in-range tables (the

@@ -145,7 +145,7 @@ def test_update_pyramid_with_gates_matches_jax(corridor, model, layout):
                         for lo in tlevels)
     for gates in ([True, False, True, True], [True, True, True, False]):
         g = torch.tensor(gates)
-        tlevels, trunc = tmap.update_pyramid(tlevels, tposes, stacked, tc, g)
+        tlevels, trunc = tmap.update_pyramid(tlevels, tposes, stacked, tc, gates=g)
         assert trunc.shape == (r,)
         for lvl in range(len(jlevels)):
             factor = 1.0 / 2 ** lvl
@@ -211,7 +211,7 @@ def test_update_pyramid_paints_once_per_update(corridor, monkeypatch,
             levels = tuple(lo.expand((r,) + lo.shape).contiguous()
                            for lo in levels)
     for step in range(2):
-        new, _ = tmap.update_pyramid(levels, pose, scan, CFG, gates)
+        new, _ = tmap.update_pyramid(levels, pose, scan, CFG, gates=gates)
         assert calls == [2 * CFG.map.levels] * (step + 1)
         assert all((a != b).any() for a, b in zip(new, levels))
         levels = new
