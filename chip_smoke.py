@@ -34,9 +34,12 @@ the main path through the entry points a user calls:
      update_pyramid call of each route, host-fed, in turns;
   5. session — the SlamSession entry point on the same fixture, stamps
      t x 0.025 s: session A (timing_mode "step") through process_ranges,
-     poses bit-equal to run_log's, gates and RMSE as in 4, one paint
-     launch per gated update; session B ("phases", 100 scans) bit-equal
-     to A; A kidnapped by (+0.6 m, -0.5 m, +0.25 rad) and recovered by
+     which replays slam_step_jit's CUDA graph, poses bit-equal to
+     run_log's, gates and RMSE as in 4, one capture and one replay a
+     scan, one paint launch a scan (the compiled step updates on every
+     scan and the gate selects) and one in the capture's warm-up;
+     session B ("phases", 100 scans: match_phase_jit, update_phase_jit)
+     bit-equal to A; A kidnapped by (+0.6 m, -0.5 m, +0.25 rad) and recovered by
      relocalize (n = 1024: "quad", then the default "pallas" — prune,
      cascade, 14 moments launches) and relocalize_global (defaults, 14
      launches), each within 0.1 m and 0.05 rad of the pose before the
@@ -63,19 +66,37 @@ the main path through the entry points a user calls:
      and step, equal update counts, pose RMSE < 1e-4 m, each level's
      counts of cells > 0 and < 0 equal; steps/s over steps 1-15; one
      paint launch per update;
-  9. paint vs plain — paint_cell_sets at the probe's own workload (1024^2,
+  9. graphs — the compiled entry points as CUDA graphs
+     (hector_slam_tpu_torch/core/graphs.py), each bit-equal to the eager
+     function it compiles on the inputs above: run_log_jit on the 435
+     scans against run_log (poses, metrics, final state; the caller's
+     state not donated), the JAX reference's gates (435/435) and RMSE
+     < 5 mm, one capture, 435 replays of one paint launch each, no
+     stream sync in a whole call (sync debug mode); scans/s in turns
+     (run_log, run_log_jit, run_log_jit, run_log) and 40 scans of each
+     route under torch.profiler (device ms, device operations and host
+     launch calls per scan); match_hypotheses_kernel_jit on the batched
+     workload (14 moments launches a replay) and match_hypotheses_jit
+     on 256 of its hypotheses, ms per call in turns; fleet_step_jit and
+     shared_fleet_step_jit over the fleet phases' steps (poses, gates,
+     final states bit-equal; one paint launch a replay), robot-scans/s
+     in turns (the fleet phase's eager run, graphed, graphed, eager);
+     each graph's launches per replay, warm-up launches and pool bytes;
+ 10. paint vs plain — paint_cell_sets at the probe's own workload (1024^2,
      65,536 random cells), at one update of each of the three
      map-update paths above (its six cell sets; the sequential update
-     both as the compacted sets run_log and the session paint,
-     ``sequential_seg``, and as the dense ones) and at one rank's first
-     update in phase 12 (row 0, column 0: 32 robots x 576 beams into
+     as the compacted sets run_log paints, ``sequential_seg``, as the
+     dense ones, and as the compiled steps of the session and of phase
+     9 paint it, ``sequential_graphed``: each free set the compacted
+     one followed by the dense one, the unchosen one all sentinels) and
+     at one rank's first update in phase 13 (row 0, column 0: 32 robots x 576 beams into
      their own grids, 16 robots x 1,152 beams into the shared one, the
      blocks shard_scan and shard_shared_fleet_scan give it): grids
      exactly equal to the plain version's, two launches bit-identical,
      and the update's time as one call (one fill, one launch) and as six
      one-set calls, beside the plain version's, index_put_'s and the
      bytes bound;
- 10. probes — the cost probes of tools/probe_pallas.py and
+ 11. probes — the cost probes of tools/probe_pallas.py and
      tools/probe_mosaic_store.py at their own shapes, driven through
      hector_slam_tpu_torch.probes (take_along over 64 [8,128] tiles on both
      axes and on the four one-tile operands, matmul_stationary
@@ -96,7 +117,7 @@ the main path through the entry points a user calls:
      version; then a paint_runs_split line (probes.store_split: the
      kernel's launch and grid barrier alone, + its fill, + its runs, and
      a torch.zeros fill alone);
- 11. queries — the query modules on JAX's map: the committed reference
+ 12. queries — the query modules on JAX's map: the committed reference
      (tests/fixtures/queries_jax_reference.npz, written on the CPU by
      tools/make_torch_queries_reference.py) is a JAX checkpoint of the
      JAX session's 435-scan replay, which load_state reads onto the card,
@@ -110,7 +131,7 @@ the main path through the entry points a user calls:
      service distances and normals of 64 rays (equal); save_state ->
      load_state round trips of the session state and of the 64-robot
      shared fleet's final state (bit-equal); ms per call;
- 12. sharded — parallel/sharded.py on four gloo ranks sharing the card
+ 13. sharded — parallel/sharded.py on four gloo ranks sharing the card
      (a (robot 2, beam 2) mesh, spawned by run_ranks with a deadline):
      the 64-robot per-robot fleet for 6 steps (poses within 2e-4, gates
      equal, finest maps agreeing on more than 99.9% of cells against the
@@ -121,7 +142,7 @@ the main path through the entry points a user calls:
      in the ranks: a rank paints on the steps where a gate of its robots
      fired (a beam group's ranks take the same gates), and steps 1-5, the
      timed ones, hold gated updates of both fleets;
- 13. the kernels line: per kernel, its launches on the main path (each
+ 14. the kernels line: per kernel, its launches on the main path (each
      path, the probes included, is driven with the counts set to 0 just
      before it and read just after), its largest error against the plain
      version, its time, the plain version's and the library call's time,
@@ -159,6 +180,7 @@ SHARED_RMSE_M = 1e-4    # port vs JAX pose RMSE, shared fleet (see its tests)
 FLEET_ROBOTS = 64       # BASELINE config 5: 64 parallel trajectories
 FLEET_STEPS = 25        # one untimed warm-up step, then 24 timed
 FLEET_CHECKED = (0, 21, 42, 63)   # replayed alone through slam_step
+GRAPH_PROFILE_SCANS = 40   # scans traced per route in phase graphs
 # the session phase's scenario (tools/make_torch_session_reference.py)
 SESSION_STAMP_S = 0.025
 SESSION_PHASES_SCANS = 100      # session B, timing_mode="phases"
@@ -280,7 +302,7 @@ def run_steps(step, state, scans):
     poses, metrics, t0 = [], [], None
     for t, sc in enumerate(scans):
         state, m = step(state, sc)
-        poses.append(state.pose)
+        poses.append(state.pose.clone())   # a compiled step reuses it
         metrics.append(m)
         if t == 0:
             torch.cuda.synchronize()
@@ -579,7 +601,8 @@ def phase_sequential(kernels):
     # one gated update's paint inputs: a mid-log scan at its matched pose
     gated = np.flatnonzero(gates)
     t = int(gated[len(gated) // 2])
-    return launches, xla_launches, poses, (poses_t[t], one[t])
+    return (launches, xla_launches, poses, (poses_t[t], one[t]),
+            (scans, state, poses_t, metrics))
 
 
 def phase_seg_vs_dense(pose, scan):
@@ -658,6 +681,7 @@ def phase_session(kernels, run_log_poses):
     import tempfile
 
     import hector_slam_tpu_torch as ht
+    from hector_slam_tpu_torch.core import graphs
     from hector_slam_tpu_torch.export.images import read_png_size
     ref = np.load(ROOT / "tests" / "fixtures" / "session_jax_reference.npz")
     seq = np.load(ROOT / "tests" / "fixtures" / "corridor_jax_reference.npz")
@@ -674,19 +698,23 @@ def phase_session(kernels, run_log_poses):
     b = ht.SlamSession(cfg, laser, timing_mode="phases")
     reset_counts(kernels)
     marks = [read_counts(kernels)]
+    graph_marks = [graphs.totals()]
     poses_a = []
     for t, r in enumerate(ranges):
         scan_index[0] = t
         poses_a.append(a.process_ranges(r, stamp=t * SESSION_STAMP_S))
     poses_a = np.stack(poses_a)
     marks.append(read_counts(kernels))
+    graph_marks.append(graphs.totals())
     poses_b = np.stack([b.process_ranges(r, stamp=t * SESSION_STAMP_S)
                         for t, r in enumerate(
                             ranges[:SESSION_PHASES_SCANS])])
     marks.append(read_counts(kernels))
+    graph_marks.append(graphs.totals())
 
     good = a.pose.copy()
-    kidnapped = a.state._replace(pose=torch.from_numpy(
+    # a copy: the session's steps update their state in place (donation)
+    kidnapped = graphs.fresh(a.state)._replace(pose=torch.from_numpy(
         good + KIDNAP).to(a.device))
     a.state = kidnapped
     quad, quad_ms = timed_call(lambda: a.relocalize(method="quad",
@@ -724,6 +752,9 @@ def phase_session(kernels, run_log_poses):
     def delta(i, name):
         return marks[i + 1][name] - marks[i][name]
 
+    def graph_delta(i, key):
+        return graph_marks[i + 1][key] - graph_marks[i][key]
+
     rmse = float(np.sqrt(np.mean((poses_a[:, :2] - seq["poses"][:, :2])
                                  ** 2)))
     stats_a, stats_b = a.timing_stats(), b.timing_stats()
@@ -748,8 +779,17 @@ def phase_session(kernels, run_log_poses):
         "a_update_count": int(a.state.map_update_count) == int(
             seq["map_update_count"]) == int(ref["map_update_count"]),
         "a_rmse": rmse < RMSE_BUDGET_M,
-        "a_paint_per_update": delta(0, "paint_cells") == int(gates.sum())
+        # slam_step_jit: one graph replay a scan, each painting once (the
+        # update runs on every scan and the gate selects), and one
+        # capture, whose warm-up paints once
+        "a_graph_replays": graph_delta(0, "replays") == len(ranges)
+        and graph_delta(0, "captures") == 1,
+        "a_paint_per_scan": delta(0, "paint_cells") == len(ranges) + 1
         and delta(0, "interp_moments") == 0,
+        "b_graph_replays": graph_delta(1, "replays")
+        == 2 * SESSION_PHASES_SCANS and graph_delta(1, "captures") == 2,
+        "b_paint_per_scan": delta(1, "paint_cells")
+        == SESSION_PHASES_SCANS + 1,
         "b_bit_equal_a": bool(np.array_equal(
             poses_b, poses_a[:SESSION_PHASES_SCANS])),
         "recovered": all(v["accepted"] and v["err_m"] < RECOVERED_M
@@ -1015,7 +1055,9 @@ def phase_fleet(kernels):
          solo_replays={str(k): v for k, v in solo.items()})
     if not ok:
         raise SystemExit("the fleet failed its checks")
-    return launches, first, scans[:SHARDED_STEPS]
+    eager = dict(scans=scans, poses=poses, gates=gates, state=fleet,
+                 robot_scans_per_s=timed * FLEET_ROBOTS / seconds)
+    return launches, first, scans[:SHARDED_STEPS], eager
 
 
 def phase_shared_fleet(kernels):
@@ -1068,15 +1110,258 @@ def phase_shared_fleet(kernels):
          kernel_launches=launches, expected_paint_launches=paints)
     if not ok:
         raise SystemExit("the shared fleet disagrees with the JAX reference")
-    return launches, first, scans[:SHARDED_STEPS], ref["start_poses"], state
+    eager = dict(scans=scans, poses=poses, gates=gates, state=state,
+                 starts=ref["start_poses"],
+                 robot_scans_per_s=timed * r / seconds)
+    return (launches, first, scans[:SHARDED_STEPS], ref["start_poses"],
+            state, eager)
+
+
+def profile_counts(fn) -> dict:
+    """One ``fn()`` under torch.profiler, after an untraced call: wall
+    ms, the device ms and count of its kernels and copies, and the host's
+    launch calls (kernels one by one, or graphs)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_us, ops, calls = 0.0, 0, {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us += getattr(ev, "self_device_time_total",
+                              getattr(ev, "self_cuda_time_total", 0.0))
+            ops += ev.count
+        elif "Launch" in ev.key and ev.key.startswith(("cuda", "cu")):
+            calls[ev.key] = calls.get(ev.key, 0) + ev.count
+    return dict(wall_ms=wall_ms, device_ms=dev_us / 1e3, device_ops=ops,
+                host_launch_calls=calls)
+
+
+def same_state(a, b) -> bool:
+    """Every leaf of two SLAM states bit-equal."""
+    return all(torch.equal(x, y) for x, y in zip(
+        [*a.log_odds, *a.quads, a.pose, a.last_map_update_pose,
+         a.covariance, a.step, a.map_update_count],
+        [*b.log_odds, *b.quads, b.pose, b.last_map_update_pose,
+         b.covariance, b.step, b.map_update_count]))
+
+
+def phase_graphs(dev, kernels, sequential, hyp_inputs, fleet, shared):
+    """The compiled entry points as CUDA graphs (core/graphs.py), each
+    held bit-equal to the eager function it compiles, on the inputs of
+    the phases above: run_log_jit on the 435-scan log (against run_log,
+    and the JAX reference's gates and RMSE; no stream sync in a whole
+    call), match_hypotheses_kernel_jit on the batched workload and
+    match_hypotheses_jit on 256 of its hypotheses, fleet_step_jit and
+    shared_fleet_step_jit over the fleet phases' steps. Rates in turns
+    (eager, graphed, graphed, eager), a traced 40-scan replay of each
+    route, the graphs' launch counts and pool sizes. Returns the phase's
+    launches."""
+    import hector_slam_tpu_torch as ht
+    from hector_slam_tpu_torch.core import graphs
+    from hector_slam_tpu_torch.core.slam import quads_of
+    ref = np.load(ROOT / "tests" / "fixtures" / "corridor_jax_reference.npz")
+    cfg = ht.BENCH_CONFIG
+    scans, eager_state, eager_poses, eager_metrics = sequential
+    n = scans.points.shape[0]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    graphs.clear()
+    reset_counts(kernels)
+    checks, out = {}, {}
+
+    def timed(fn):
+        """(fn(), ms to the device's completion, ms to fn's return)."""
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        res = fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        return res, start.elapsed_time(end), host_ms
+
+    def stats_of(name):
+        return [g._asdict() for g in graphs.stats() if g.name == name]
+
+    # -- sequential: run_log_jit, its first call captures -----------------
+    state0 = ht.init_state(cfg, dev)
+    fresh0 = graphs.fresh(state0)
+    g0, c0 = graphs.totals(), read_counts(kernels)
+    (st, poses, metrics), first_ms, _ = timed(
+        lambda: ht.run_log_jit(state0, scans, cfg))
+    g1, c1 = graphs.totals(), read_counts(kernels)
+    [seq_graph] = stats_of("run_log_jit")
+    checks["run_log_bit_equal"] = (
+        torch.equal(poses, eager_poses) and same_state(st, eager_state)
+        and all(torch.equal(a, b) for a, b in zip(metrics, eager_metrics)))
+    checks["run_log_not_donated"] = same_state(state0, fresh0)
+    host_poses = poses.cpu().numpy()
+    gates = metrics.map_updated.cpu().numpy()
+    rmse = float(np.sqrt(np.mean((host_poses[:, :2]
+                                  - ref["poses"][:, :2]) ** 2)))
+    checks["run_log_vs_jax"] = (
+        int((gates == ref["map_updated"]).sum()) == n == len(gates)
+        and rmse < RMSE_BUDGET_M and np.isfinite(host_poses).all())
+    checks["run_log_launches"] = (
+        seq_graph["per_replay"] == {"interp_moments": 0, "paint_cells": 1}
+        and g1["replays"] - g0["replays"] == n
+        and g1["captures"] - g0["captures"] == 1
+        and c1["paint_cells"] - c0["paint_cells"] == n + 1)
+    (_, syncs) = count_host_syncs(lambda: ht.run_log_jit(state0, scans, cfg))
+    checks["run_log_no_stream_sync"] = syncs == []
+    rates = {}
+
+    def eager():
+        return ht.run_log(ht.init_state(cfg, dev), scans, cfg)
+
+    def graphed():
+        return ht.run_log_jit(state0, scans, cfg)
+
+    for label, fn in (("eager run_log", eager), ("run_log_jit", graphed),
+                      ("run_log_jit again", graphed),
+                      ("eager run_log again", eager)):
+        (_, p, _), ms, host_ms = timed(fn)
+        rates[label] = dict(scans_per_s=n / (ms / 1e3), ms_per_scan=ms / n,
+                            host_ms_per_scan=host_ms / n,
+                            bit_equal=torch.equal(p, eager_poses))
+    checks["rates_bit_equal"] = all(r["bit_equal"] for r in rates.values())
+    short = ht.Scan(*(f[:GRAPH_PROFILE_SCANS] for f in scans))
+    traced = {
+        "eager run_log": profile_counts(
+            lambda: ht.run_log(ht.init_state(cfg, dev), short, cfg)),
+        "run_log_jit": profile_counts(
+            lambda: ht.run_log_jit(state0, short, cfg))}
+    per_scan = {k: dict(
+        wall_ms=t["wall_ms"] / GRAPH_PROFILE_SCANS,
+        device_ms=t["device_ms"] / GRAPH_PROFILE_SCANS,
+        device_ops=t["device_ops"] / GRAPH_PROFILE_SCANS,
+        host_launch_calls={c: v / GRAPH_PROFILE_SCANS
+                           for c, v in t["host_launch_calls"].items()})
+        for k, t in traced.items()}
+    out["sequential"] = dict(
+        scans=n, first_call_ms=first_ms, graph=seq_graph,
+        gate_agreement=int((gates == ref["map_updated"]).sum()),
+        pose_rmse_m=rmse, stream_syncs_in_a_call=len(syncs),
+        sync_sites=syncs[:8], rates_in_call_order=rates,
+        traced_scans=GRAPH_PROFILE_SCANS, traced_per_scan=per_scan)
+
+    paints = {"sequential": read_counts(kernels)["paint_cells"]}
+
+    # -- batched matching: the kernel route and the plain route -----------
+    levels = tuple(torch.from_numpy(lo).to(dev)
+                   for lo in hyp_inputs["levels"])
+    quads = quads_of(levels, cfg.update.cell_model)
+    hyp = torch.from_numpy(hyp_inputs["hypotheses"]).to(dev)
+    scan = ht.Scan(*(torch.from_numpy(hyp_inputs[f]).to(dev)
+                     for f in ("points", "origo", "mask")))
+
+    def kernel_eager():
+        return ht.match_hypotheses_kernel(levels, hyp, scan, cfg,
+                                          quads=quads)
+
+    def kernel_graphed():
+        return ht.match_hypotheses_kernel_jit(levels, hyp, scan, cfg,
+                                              quads=quads)
+
+    def plain_eager():
+        return ht.match_hypotheses(levels, hyp[:256], scan, cfg)
+
+    def plain_graphed():
+        return ht.match_hypotheses_jit(levels, hyp[:256], scan, cfg)
+
+    want, got = kernel_eager(), kernel_graphed()
+    checks["kernel_route_bit_equal"] = all(
+        torch.equal(a, b) for a, b in zip(want[0] + want[1],
+                                          got[0] + got[1]))
+    checks["plain_route_bit_equal"] = all(
+        torch.equal(a, b) for a, b in zip(plain_eager(), plain_graphed()))
+    [kgraph] = stats_of("match_hypotheses_kernel_jit")
+    [pgraph] = stats_of("match_hypotheses_jit")
+    checks["kernel_route_launches"] = kgraph["per_replay"] == {
+        "interp_moments": 14, "paint_cells": 0}
+    out["batched"] = dict(
+        hypotheses=hyp.shape[0], kernel_graph=kgraph, plain_graph=pgraph,
+        plain_hypotheses=256, ms_per_call_in_call_order=[
+            (label, cuda_ms(fn, 10)) for label, fn in (
+                ("match_hypotheses_kernel", kernel_eager),
+                ("match_hypotheses_kernel_jit", kernel_graphed),
+                ("match_hypotheses_kernel_jit", kernel_graphed),
+                ("match_hypotheses_kernel", kernel_eager),
+                ("match_hypotheses", plain_eager),
+                ("match_hypotheses_jit", plain_graphed),
+                ("match_hypotheses_jit", plain_graphed),
+                ("match_hypotheses", plain_eager))])
+
+    # -- the fleets: eager (their phases), graphed, graphed, eager --------
+    def fleet_runs(name, jit_step, eager_step, init, ran):
+        timed_steps = len(ran["scans"]) - 1
+        graphs.clear()
+        st, p, m, secs = run_steps(jit_step, init(), ran["scans"])
+        [graph] = stats_of(name)
+        g_poses = torch.stack(p).cpu().numpy()
+        g_gates = torch.stack([x.map_updated for x in m]).cpu().numpy()
+        equal = (np.array_equal(g_poses, ran["poses"])
+                 and np.array_equal(g_gates, ran["gates"])
+                 and same_state(st, ran["state"]))
+        del st, p, m
+        graphs.clear()
+        _, _, _, secs2 = run_steps(jit_step, init(), ran["scans"])
+        graphs.clear()
+        _, _, _, secs3 = run_steps(eager_step, init(), ran["scans"])
+        robots = ran["poses"].shape[1]
+        return equal, dict(
+            graph=graph, steps=len(ran["scans"]), timed_steps=timed_steps,
+            robot_scans_per_s_in_call_order=[
+                ("eager (its phase)", ran["robot_scans_per_s"]),
+                ("graphed", timed_steps * robots / secs),
+                ("graphed again", timed_steps * robots / secs2),
+                ("eager again", timed_steps * robots / secs3)])
+
+    marks = read_counts(kernels)["paint_cells"]
+    checks["fleet_bit_equal"], out["fleet"] = fleet_runs(
+        "fleet_step_jit", lambda s, sc: ht.fleet_step_jit(s, sc, cfg),
+        lambda s, sc: ht.fleet_step(s, sc, cfg),
+        lambda: ht.init_fleet(cfg, fleet["poses"].shape[1], dev), fleet)
+    paints["fleet"] = read_counts(kernels)["paint_cells"] - marks
+    marks = read_counts(kernels)["paint_cells"]
+    checks["shared_fleet_bit_equal"], out["shared_fleet"] = fleet_runs(
+        "shared_fleet_step_jit",
+        lambda s, sc: ht.shared_fleet_step_jit(s, sc, cfg),
+        lambda s, sc: ht.shared_fleet_step(s, sc, cfg),
+        lambda: ht.init_shared_fleet(cfg, shared["poses"].shape[1],
+                                     start_poses=shared["starts"],
+                                     device=dev), shared)
+    paints["shared_fleet"] = read_counts(kernels)["paint_cells"] - marks
+    for name in ("fleet", "shared_fleet"):
+        checks[f"{name}_launches"] = out[name]["graph"]["per_replay"] == {
+            "interp_moments": 0, "paint_cells": 1}
+    launches = read_counts(kernels)
+    graphs.clear()
+    checks = {k: bool(v) for k, v in checks.items()}
+    ok = all(checks.values())
+    emit("graphs", ok=ok, checks=checks, kernel_launches=launches,
+         paint_launches_by_route=paints, graph_totals=graphs.totals(),
+         **out)
+    if not ok:
+        raise SystemExit("the compiled entry points failed their checks: "
+                         + ", ".join(k for k, v in checks.items() if not v))
+    return launches, paints
 
 
 def paint_index_sets(cfg, poses, scan, layout):
     """(names, indices i32, num_cells) of the six cell sets one map update
     paints at these poses: one scan's dense sets (``single``) or its
     segment-compacted ones (``seg``, the dense free set on a level past
-    its budget), R scans into per-robot grids (``per_robot``) or into one
-    shared grid (``shared``)."""
+    its budget; ``seg_sync_free``, as a compiled step paints them: each
+    free set the compacted one followed by the dense one, the unchosen
+    one all sentinels), R scans into per-robot grids (``per_robot``) or
+    into one shared grid (``shared``)."""
     from hector_slam_tpu_torch.core.mapping import _seg_pairs, cell_indices
     from hector_slam_tpu_torch.core.matcher import level_points
     shapes, inputs = [], []
@@ -1087,8 +1372,9 @@ def paint_index_sets(cfg, poses, scan, layout):
                        level_points(scan.origo, level), scan.mask,
                        cfg.map.top_left_offset, cfg.map.level_scale(level),
                        cfg.level_max_ray_cells(level)))
-    if layout == "seg":
-        pairs = _seg_pairs(shapes, inputs)[0]
+    if layout in ("seg", "seg_sync_free"):
+        pairs = _seg_pairs(shapes, inputs,
+                           sync_free=layout == "seg_sync_free")[0]
         cells = [sy * sx for sy, sx in shapes]
     else:
         built = [cell_indices(shape, *args, layout == "per_robot")
@@ -1665,18 +1951,22 @@ def run_paths(dev):
     abs_kvp = phase_kernel_vs_plain(dev)
     paths, paint_inputs = {}, {}
     (paths["sequential"], paths["sequential_xla"], run_log_poses,
-     (pose, scan)) = phase_sequential(kernels)
+     (pose, scan), sequential) = phase_sequential(kernels)
     phase_seg_vs_dense(pose, scan)
     paint_inputs["sequential_seg"] = ("seg", pose, scan)
+    paint_inputs["sequential_graphed"] = ("seg_sync_free", pose, scan)
     paint_inputs["sequential"] = ("single", pose, scan)
     paths["session"] = phase_session(kernels, run_log_poses)
     paths["batched"], levels, abs_main, hyp_inputs = phase_batched(
         dev, kernels)
-    paths["fleet"], fleet_first, fleet_scans = phase_fleet(kernels)
+    paths["fleet"], fleet_first, fleet_scans, fleet = phase_fleet(kernels)
     paint_inputs["fleet"] = ("per_robot", *fleet_first)
     (paths["shared_fleet"], shared_first, shared_scans, starts,
-     shared_state) = phase_shared_fleet(kernels)
+     shared_state, shared) = phase_shared_fleet(kernels)
     paint_inputs["shared_fleet"] = ("shared", *shared_first)
+    paths["graphs"], graph_paints = phase_graphs(
+        dev, kernels, sequential, hyp_inputs, fleet, shared)
+    del sequential, fleet, shared
     paint_inputs.update(sharded_paint_inputs(fleet_first, shared_first))
     paint_rows, paint_bad = phase_paint(dev, paint_inputs)
     paths["probes"], probe_rows, long_lines = phase_probes(dev, kernels)
@@ -1695,12 +1985,15 @@ def run_paths(dev):
         return sum(lv[key] * lv["gn_steps"] for lv in levels) / total
 
     # paint: each update shape weighted by the launches painting it (one
-    # per update); run_log and the session paint the compacted sets, the
-    # "xla" replay the dense ones; the NCCL rank paints the whole fleet,
-    # the gloo ranks their blocks
-    weights = {p: paths[p]["paint_cells"] for p in ("fleet", "shared_fleet")}
-    weights["sequential_seg"] = (paths["sequential"]["paint_cells"]
-                                 + paths["session"]["paint_cells"])
+    # per update, or per scan of a compiled step); run_log paints the
+    # compacted sets, the "xla" replay the dense ones, the session and the
+    # compiled sequential steps both sets (one of them all sentinels); the
+    # NCCL rank paints the whole fleet, the gloo ranks their blocks
+    weights = {p: paths[p]["paint_cells"] + graph_paints[p]
+               for p in ("fleet", "shared_fleet")}
+    weights["sequential_seg"] = paths["sequential"]["paint_cells"]
+    weights["sequential_graphed"] = (paths["session"]["paint_cells"]
+                                     + graph_paints["sequential"])
     weights["sequential"] = paths["sequential_xla"]["paint_cells"]
     weights["fleet"] += sharded_paints["nccl"]
     weights["sharded"] = sharded_paints["fleet"]

@@ -4,7 +4,10 @@ The same engine on one NVIDIA H100: plain tensor code in PyTorch, and
 every kernel the JAX package wrote in Pallas for the TPU written by hand
 in CUDA C++ for Hopper (``csrc/``). It imports nothing of JAX or of the
 JAX package. Entry points put their tensors on the card unless the
-caller passes ``device="cpu"``, and raise when no card is present.
+caller passes ``device="cpu"``, and raise when no card is present. The
+``*_jit`` entry points are the JAX package's compiled ones: on the card
+each replays a CUDA graph of a body that reads nothing on the host
+(``core/graphs.py``).
 """
 
 from .config import (BENCH_CONFIG, CITYFLYER_LOG_CONFIG, DEFAULT_CONFIG,
@@ -15,7 +18,8 @@ from .convert import fleet_state_from_numpy, scan_from_numpy, state_from_numpy
 from .core.debug import match_pyramid_debug
 from .core.mapping import update_pyramid
 from .core.matcher import match_level, match_pyramid
-from .core.slam import init_state, run_log, slam_step
+from .core.slam import (init_state, run_log, run_log_jit, slam_step,
+                        slam_step_jit)
 from .export.geotiff import GeotiffExporter, write_geotiff
 from .export.markers import arrow_marker, covariance_ellipse, pose_markers
 from .export.images import map_tile_image, map_to_image, write_pgm, write_png
@@ -30,11 +34,14 @@ from .io.scanlog import (LaserModel, load_log, save_log, scan_from_points,
                          scan_from_ranges, stack_scans)
 from .ops.interp_moments import interp_moments, interp_moments_plain
 from .ops.paint_cells import paint_cells, paint_cells_plain
-from .parallel.batch import (best_hypothesis, fleet_step, init_fleet,
-                             match_hypotheses, residual_for_poses)
-from .parallel.kernel_match import MatchDiag, match_hypotheses_kernel
+from .parallel.batch import (best_hypothesis, fleet_step, fleet_step_jit,
+                             init_fleet, match_hypotheses,
+                             match_hypotheses_jit, residual_for_poses)
+from .parallel.kernel_match import (MatchDiag, match_hypotheses_kernel,
+                                    match_hypotheses_kernel_jit)
 from .parallel.recovery import auto_prune_top_k, prune_hypotheses_coarse
-from .parallel.shared_map import init_shared_fleet, shared_fleet_step
+from .parallel.shared_map import (init_shared_fleet, shared_fleet_step,
+                                  shared_fleet_step_jit)
 from .query.raycast import (distance_to_obstacle, distance_to_obstacle_batch,
                             get_distance_to_obstacle, get_normal,
                             get_search_position)
@@ -48,7 +55,7 @@ __all__ = [
     "MapConfig", "MatchConfig", "SlamConfig", "UpdateConfig",
     "fleet_state_from_numpy", "scan_from_numpy", "state_from_numpy",
     "update_pyramid", "match_level", "match_pyramid", "match_pyramid_debug",
-    "init_state", "run_log", "slam_step",
+    "init_state", "run_log", "run_log_jit", "slam_step", "slam_step_jit",
     "GeotiffExporter", "write_geotiff",
     "arrow_marker", "covariance_ellipse", "pose_markers",
     "map_tile_image", "map_to_image", "write_pgm", "write_png",
@@ -62,9 +69,10 @@ __all__ = [
     "scan_from_ranges", "stack_scans",
     "interp_moments", "interp_moments_plain",
     "paint_cells", "paint_cells_plain",
-    "best_hypothesis", "fleet_step", "init_fleet", "match_hypotheses",
-    "residual_for_poses", "init_shared_fleet", "shared_fleet_step",
-    "MatchDiag", "match_hypotheses_kernel",
+    "best_hypothesis", "fleet_step", "fleet_step_jit", "init_fleet",
+    "match_hypotheses", "match_hypotheses_jit", "residual_for_poses",
+    "init_shared_fleet", "shared_fleet_step", "shared_fleet_step_jit",
+    "MatchDiag", "match_hypotheses_kernel", "match_hypotheses_kernel_jit",
     "auto_prune_top_k", "prune_hypotheses_coarse", "SlamSession",
     "distance_to_obstacle", "distance_to_obstacle_batch",
     "get_distance_to_obstacle", "get_normal", "get_search_position",

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..types import Scan
+from .grid import device_constant
 from .interp import beam_sum, interp_with_derivatives
 
 # sigma-point offsets of getCovarianceForPose (OccGridMapUtil.h:106-160):
@@ -58,8 +59,7 @@ def sigma_point_covariance(log_odds: torch.Tensor, pose_map: torch.Tensor,
     weighted by their match likelihood; the weighted scatter matrix f32[3,
     3] in map coordinates. Each entry is w * (d_i * d_j), so the result is
     exactly symmetric."""
-    offsets = torch.tensor(_SIGMA_OFFSETS, dtype=torch.float32,
-                           device=pose_map.device)
+    offsets = device_constant(_SIGMA_OFFSETS, pose_map.device)
     sigma = pose_map + offsets                                  # [7, 3]
     lh = likelihood_for_state(log_odds, sigma, scan, cell_model)
     inv_norm = 1.0 / lh.sum()

@@ -1,0 +1,234 @@
+"""CUDA graphs of the compiled entry points: the counterpart of the JAX
+package's ``jax.jit`` cache (``slam_step_jit``, ``run_log_jit``,
+``match_hypotheses_jit``, ``fleet_step_jit``, ...).
+
+An entry point hands ``entry`` a body and its tensors in two groups:
+  - ``held``: tensors the graph uses where they lie (a donated state's
+    map levels and quads, a matcher's map). They are part of the cache
+    key (data pointer, shape, strides, dtype), so a graph reads and
+    writes the caller's own memory, and two callers with different maps
+    never share a graph;
+  - ``copied``: tensors copied into the graph's own static buffers before
+    a replay (pose leaves, scans, hypotheses), unless the caller passes
+    the static buffer itself, as it does with the state a donating step
+    returned. Only their shapes and dtypes are keyed.
+``body(held, statics, write)`` computes the outputs from them with torch
+ops and the port's kernel wrappers; with ``write`` it also writes the
+donated state back into ``held`` and ``statics`` (the graph's in-place
+update), without it it writes nothing.
+
+A miss warms up, then captures: the body runs once eagerly on a side
+stream without writing (it builds the kernels, raises the moments
+kernel's shared memory limit, puts the transforms' constants on the card)
+and is then captured with writing into a private memory pool. The index
+tensors, grids and outputs allocated during the capture are pool memory
+that lives as long as the graph, so the pointers the kernels were
+launched with stay valid. A failed warm-up or capture raises: nothing
+falls back to the eager functions.
+
+Launch counts: a replay runs no Python, so the kernel wrappers'
+``launches`` counters see the capture, not the replays. The capture's
+counts are taken back and added again at every replay, so the counters
+keep counting launches on the card. The warm-up's launches are real and
+stay counted.
+
+At most ``MAX_GRAPHS`` graphs are kept, the least recently used dropped
+first (with its pool and its references to held tensors).
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Callable, Dict, List, NamedTuple, Sequence
+
+import torch
+
+from ..ops.interp_moments import interp_moments
+from ..ops.paint_cells import paint_cells
+
+MAX_GRAPHS = 8
+COUNTED = {"interp_moments": interp_moments, "paint_cells": paint_cells}
+
+
+class GraphStats(NamedTuple):
+    name: str
+    per_replay: Dict[str, int]   # kernel launches of one replay
+    warmup: Dict[str, int]       # kernel launches of the warm-up run
+    pool_bytes: int              # device memory reserved by the capture
+    replays: int
+
+
+class Entry:
+    """One captured graph: its static buffers, outputs and counts."""
+
+    def __init__(self, name, graph, held, statics, outputs, per_replay,
+                 warmup, pool_bytes):
+        self.name = name
+        self.graph = graph
+        self.held = held          # kept alive: the graph uses their memory
+        self.statics = statics
+        self.outputs = outputs
+        self.per_replay = per_replay
+        self.warmup = warmup
+        self.pool_bytes = pool_bytes
+        self.replays = 0
+
+    def copy_in(self, copied: Sequence[torch.Tensor]) -> None:
+        for static, src in zip(self.statics, copied):
+            if src is not static:
+                static.copy_(src)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        self.replays += 1
+        _TOTALS["replays"] += 1
+        for name, n in self.per_replay.items():
+            COUNTED[name].launches += n
+            _TOTALS["launches"][name] += n
+
+    def stats(self) -> GraphStats:
+        return GraphStats(self.name, dict(self.per_replay), dict(self.warmup),
+                          self.pool_bytes, self.replays)
+
+
+_CACHE: "OrderedDict[tuple, Entry]" = OrderedDict()
+# since import: graphs captured, replays, and the kernel launches of the
+# graphs' warm-ups and replays
+_TOTALS = {"captures": 0, "replays": 0,
+           "launches": {name: 0 for name in COUNTED}}
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether an entry point given ``t`` replays a graph (a CUDA tensor)
+    or runs its body eagerly (a CPU tensor)."""
+    return t.device.type == "cuda"
+
+
+def _counts() -> Dict[str, int]:
+    return {name: k.launches for name, k in COUNTED.items()}
+
+
+def _key(name, static_key, held, copied):
+    return (name, static_key,
+            tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype,
+                   t.device) for t in held),
+            tuple((tuple(t.shape), t.dtype, t.device) for t in copied))
+
+
+def _capture(name, held, copied, body) -> Entry:
+    device = (list(held) + list(copied))[0].device
+    statics = [t.clone(memory_format=torch.contiguous_format)
+               for t in copied]
+    before = _counts()
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    try:
+        with torch.cuda.stream(side):
+            body(held, statics, False)
+    except Exception as err:
+        raise RuntimeError(f"{name}: the warm-up run before the CUDA graph "
+                           f"capture failed: {err}") from err
+    torch.cuda.current_stream(device).wait_stream(side)
+    warmup = {k: n - before[k] for k, n in _counts().items()}
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    before = _counts()
+    stream = torch.cuda.current_stream(device)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            outputs = body(held, statics, True)
+    except Exception as err:
+        # a capture that fails as it ends leaves its stream current
+        torch.cuda.set_stream(stream)
+        raise RuntimeError(f"{name}: CUDA graph capture failed (the body "
+                           f"must not read device data on the host): "
+                           f"{err}") from err
+    finally:
+        after = _counts()
+        for kname, kernel in COUNTED.items():
+            kernel.launches = before[kname]
+    per_replay = {k: n - before[k] for k, n in after.items()}
+    _TOTALS["captures"] += 1
+    for kname, n in warmup.items():
+        _TOTALS["launches"][kname] += n
+    return Entry(name, graph, list(held), statics, outputs, per_replay,
+                 warmup, torch.cuda.memory_reserved(device) - reserved)
+
+
+def entry(name: str, static_key, held: Sequence[torch.Tensor],
+          copied: Sequence[torch.Tensor],
+          body: Callable[[List[torch.Tensor], List[torch.Tensor], bool],
+                         object]) -> Entry:
+    """The graph of ``body`` for this static signature and these held
+    tensors, captured on the first call, with ``copied`` copied into its
+    static buffers. The caller then replays it (``Entry.replay``) and
+    reads ``Entry.outputs`` and ``Entry.statics``, which the next replay
+    overwrites."""
+    key = _key(name, static_key, held, copied)
+    found = _CACHE.get(key)
+    if found is None:
+        found = _capture(name, held, copied, body)
+        _CACHE[key] = found
+        while len(_CACHE) > MAX_GRAPHS:
+            _CACHE.popitem(last=False)
+    else:
+        _CACHE.move_to_end(key)
+    found.copy_in(copied)
+    return found
+
+
+def call(name: str, static_key, held: Sequence[torch.Tensor],
+         copied: Sequence[torch.Tensor],
+         fn: Callable[[List[torch.Tensor], List[torch.Tensor]], object]):
+    """One replay of the graph of ``fn(held, statics)``, a function that
+    writes nothing into its inputs, and fresh copies of its outputs."""
+    graph = entry(name, static_key, held, copied,
+                  lambda h, statics, write: fn(h, statics))
+    graph.replay()
+    return fresh(graph.outputs)
+
+
+def fresh(tree):
+    """A copy of every tensor of a (nested) tuple of graph outputs, which
+    the graph's next replay would overwrite."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, tuple):
+        parts = [fresh(t) for t in tree]
+        return type(tree)(*parts) if hasattr(tree, "_fields") \
+            else tuple(parts)
+    return tree
+
+
+def write_back(dst: Sequence[torch.Tensor],
+               src: Sequence[torch.Tensor]) -> None:
+    """Copies each ``src`` tensor into its ``dst`` (a donated input),
+    skipping those that already are it. Sources that are another
+    destination are copied aside first, so no write is read later."""
+    dst, src = list(dst), list(src)
+    ids = {id(t) for t in dst}
+    src = [s.clone() if s is not d and id(s) in ids else s
+           for d, s in zip(dst, src)]
+    for d, s in zip(dst, src):
+        if s is not d:
+            d.copy_(s)
+
+
+def stats() -> List[GraphStats]:
+    """The kept graphs' names, launch counts, pool sizes and replays,
+    oldest first."""
+    return [e.stats() for e in _CACHE.values()]
+
+
+def totals() -> dict:
+    """Since import: {"captures", "replays", "launches": {kernel: the
+    launches of every graph's warm-up and replays}}."""
+    return {"captures": _TOTALS["captures"], "replays": _TOTALS["replays"],
+            "launches": dict(_TOTALS["launches"])}
+
+
+def clear() -> None:
+    """Drops every kept graph, its pool and its held tensors."""
+    _CACHE.clear()

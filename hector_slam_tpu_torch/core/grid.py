@@ -4,7 +4,10 @@ map-update gate predicate and the pyramid reset.
 Counterpart of ``hector_slam_tpu/core/grid.py`` (the reference's
 GridMapBase transform math, map/GridMapBase.h:265-280). Every constant is
 rounded to float32 on the host first (``_f32``), so each op runs in f32
-and rounds exactly as the JAX expression does.
+and rounds exactly as the JAX expression does. The transforms' vector
+constants live on the device (``device_constant``): a call copies
+nothing from the host, so it never waits on the stream and a CUDA graph
+can capture it (core/graphs.py).
 """
 
 from __future__ import annotations
@@ -23,14 +26,29 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
+_CONSTANTS: dict = {}
+
+
+def device_constant(values, device) -> torch.Tensor:
+    """The f32 tensor of ``values`` on ``device``, made once per (values,
+    device) and kept: later calls return the same tensor, with no
+    host->device copy. Callers must not write into it."""
+    arr = np.ascontiguousarray(values, np.float32)
+    key = (arr.tobytes(), arr.shape, torch.device(device))
+    const = _CONSTANTS.get(key)
+    if const is None:
+        const = torch.tensor(arr, dtype=torch.float32, device=device)
+        _CONSTANTS[key] = const
+    return const
+
+
 def world_to_map(xy: torch.Tensor, offset, scale) -> torch.Tensor:
     """mapTworld = Scaling(1/cell) * Translation(offset) (GridMapBase.h:272),
     composed as Eigen composes it: map = s*w + (s*o), with s*o rounded in
     f32 (not (w+o)*s, which can flip a Bresenham cell at a .5 boundary)."""
     s = np.float32(scale)
     off = np.asarray(offset, np.float32) * s       # f32 products, as XLA
-    return xy * float(s) + torch.tensor(off, dtype=torch.float32,
-                                        device=xy.device)
+    return xy * float(s) + device_constant(off, xy.device)
 
 
 def map_to_world(xy: torch.Tensor, offset, cell_length) -> torch.Tensor:
@@ -41,8 +59,7 @@ def map_to_world(xy: torch.Tensor, offset, cell_length) -> torch.Tensor:
     inv_det = np.float32(1.0) / (s * s)
     inv_s = s * inv_det
     t = np.asarray(offset, np.float32) * s
-    return xy * float(inv_s) - torch.tensor(inv_s * t, dtype=torch.float32,
-                                            device=xy.device)
+    return xy * float(inv_s) - device_constant(inv_s * t, xy.device)
 
 
 def world_to_map_pose(pose: torch.Tensor, offset, scale) -> torch.Tensor:

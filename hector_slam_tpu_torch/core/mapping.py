@@ -277,14 +277,30 @@ def seg_cell_indices(
             _truncated_count(p, max_ray_cells), total, budget)
 
 
-def _seg_pairs(grid_shapes, level_inputs, budget_segments=0):
+def _seg_pairs(grid_shapes, level_inputs, budget_segments=0,
+               sync_free=False):
     """Each level's segment-compacted (free, occupied) index pair and
     truncated cells, for one scan. A level whose segment total exceeds
     its budget takes its dense free set instead (the JAX package's
     ``lax.cond``, hector_slam_tpu/core/mapping.py:270-273): the totals
-    of all levels come to the host in one read."""
+    of all levels come to the host in one read. ``sync_free``: the device
+    chooses instead, with no host read: the level's free set is its
+    compacted set followed by its dense set, and the one not chosen holds
+    only the sentinel, so the cells are the same."""
     built = [seg_cell_indices(shape, *inputs, budget_segments=budget_segments)
              for shape, inputs in zip(grid_shapes, level_inputs)]
+    if sync_free:
+        pairs = []
+        for shape, inputs, (free, occ, num_cells, _, total, budget) in zip(
+                grid_shapes, level_inputs, built):
+            fits = total <= budget
+            sentinel = torch.full((), num_cells, dtype=torch.int32,
+                                  device=free.device)
+            dense = cell_indices(shape, *inputs)[0]
+            pairs.append((torch.cat([
+                torch.where(fits, free, sentinel).reshape(-1),
+                torch.where(fits, sentinel, dense).reshape(-1)]), occ))
+        return pairs, [b[3] for b in built]
     totals = torch.stack([b[4] for b in built]).tolist()   # one host read
     pairs = [((free if total <= budget
                else cell_indices(shape, *inputs)[0]), occ)
@@ -326,20 +342,21 @@ def _level_sets(grid_shape, per_robot, pose_world, scan_points, scan_origo,
 
 def _update_levels(storages, level_inputs, cell_model: str,
                    log_odds_free: float, log_odds_occupied: float,
-                   beam_axis=None, raster_backend=None):
+                   beam_axis=None, raster_backend=None, sync_free=False):
     """Each storage updated with its level's scan inputs (pose, points,
     origo, mask, offset, scale, max_ray_cells): every level's index sets
     first (their layout by ``pick_raster_backend``), then all of them
     painted in one call (and OR-combined over ``beam_axis``), then each
     level updated. A storage with a leading robot axis beyond the cell
     model's own is R maps. Returns (new storages, this rank's truncated
-    cells per level)."""
+    cells per level). ``sync_free``: as in ``_seg_pairs``."""
     per_robot = storages[0].dim() > 1 + storage_channels(cell_model)
     one_scan = level_inputs[0][0].dim() == 1 and not per_robot
     if pick_raster_backend(raster_backend, storages[0].device, beam_axis,
                            one_scan) == "seg":
         shapes = [tuple(lo.shape[-2:]) for lo in storages]
-        pairs, truncated = _seg_pairs(shapes, level_inputs)
+        pairs, truncated = _seg_pairs(shapes, level_inputs,
+                                      sync_free=sync_free)
     else:
         pairs, shapes, truncated = zip(*(
             _level_sets(tuple(lo.shape[-2:]), per_robot, *inputs)
@@ -446,6 +463,7 @@ def update_pyramid(
     raster_backend: str | None = None,
     *,
     gates: torch.Tensor | None = None,
+    sync_free: bool = False,
 ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
     """MapRepMultiMap::updateByScan (MapRepMultiMap.h:134-147): every level
     updated independently with its 2^-level-scaled scan. Returns (new
@@ -477,7 +495,9 @@ def update_pyramid(
     scan on the card with no ``beam_axis`` and no ``gates``, else "xla"
     (``pick_raster_backend``). Both paint the same cells. "seg" reads the
     levels' segment totals to the host once per update, to paint a
-    level's dense set where its total exceeds the budget."""
+    level's dense set where its total exceeds the budget; with
+    ``sync_free`` it paints both sets and the device masks the one not
+    chosen, so the update reads nothing on the host."""
     mcfg = cfg.map
     mask = scan.mask if gates is None else scan.mask & gates[:, None]
     new, truncated = _update_levels(
@@ -487,7 +507,7 @@ def update_pyramid(
           mcfg.level_scale(level), cfg.level_max_ray_cells(level))
          for level in range(len(log_odds_pyramid))],
         cfg.update.cell_model, cfg.update.log_odds_free,
-        cfg.update.log_odds_occupied, beam_axis, raster_backend)
+        cfg.update.log_odds_occupied, beam_axis, raster_backend, sync_free)
     truncated_total = torch.zeros(pose_world.shape[:-1], dtype=torch.int32,
                                   device=scan.points.device)
     for t in truncated:

@@ -7,6 +7,14 @@ slam_main/HectorSlamProcessor.h:52-139). ``slam_step`` is a function
 device->host sync (the gate bit), and a gated update of segment-compacted
 sets one more (the levels' segment totals, ``core/mapping._seg_pairs``).
 
+The compiled entry points (``slam_step_jit``, ``match_phase_jit``,
+``update_phase_jit``, ``run_log_jit``) run the sync-free body instead
+(``slam_step_sync_free``): the map update runs on every scan and the gate
+selects on the device, as JAX's select form does
+(hector_slam_tpu/core/slam.py:124-131). On CUDA tensors it is captured
+once per static signature as a CUDA graph (core/graphs.py) and replayed
+with no host round trip; on CPU tensors it runs eagerly.
+
 Replicated behaviours:
   - map_without_matching accepts the pose hint verbatim and forces the map
     update (HectorSlamProcessor.h:77-81,89)
@@ -27,6 +35,7 @@ import torch
 from ..config import SlamConfig
 from ..types import Scan, SlamState, StepMetrics, resolve_device
 from ..ops.solve3 import det3
+from . import graphs
 from .collectives import psum
 from .grid import init_log_odds_pyramid, pose_difference_larger_than
 from .interp import quad_pack_storage
@@ -97,12 +106,7 @@ def update_phase(
     ``_finish_step`` / ``update_phase_jit``). ``map_without_matching``
     forces the update (:89). ``beam_axis``, ``raster_backend``: see
     ``slam_step``."""
-    if map_without_matching:
-        do_update = torch.ones((), dtype=torch.bool, device=new_pose.device)
-    else:
-        do_update = pose_difference_larger_than(
-            new_pose, state.last_map_update_pose,
-            cfg.map_update_distance_thresh, cfg.map_update_angle_thresh)
+    do_update = _gate(state, cfg, new_pose, map_without_matching)
 
     # the gate comes from the all-reduced match, so it is equal on every
     # rank of a beam group: all of them take this branch, or none, and
@@ -122,6 +126,15 @@ def update_phase(
         new_last_update_pose = state.last_map_update_pose
         new_quads = state.quads
 
+    return _assemble(state, scan, new_pose, hessian, do_update,
+                     new_log_odds, new_last_update_pose, new_quads,
+                     truncated, beam_axis)
+
+
+def _assemble(state, scan, new_pose, hessian, do_update, new_log_odds,
+              new_last_update_pose, new_quads, truncated, beam_axis=None):
+    """The new state and the step's metrics (HectorSlamProcessor.h:
+    97-113): step and update count are added on the device."""
     new_state = SlamState(
         log_odds=new_log_odds,
         pose=new_pose,
@@ -139,6 +152,45 @@ def update_phase(
         truncated_free_cells=truncated,
     )
     return new_state, metrics
+
+
+def _gate(state, cfg, new_pose, map_without_matching):
+    if map_without_matching:
+        return torch.ones((), dtype=torch.bool, device=new_pose.device)
+    return pose_difference_larger_than(
+        new_pose, state.last_map_update_pose,
+        cfg.map_update_distance_thresh, cfg.map_update_angle_thresh)
+
+
+def update_phase_sync_free(
+    state: SlamState,
+    scan: Scan,
+    cfg: SlamConfig,
+    new_pose: torch.Tensor,
+    hessian: torch.Tensor,
+    map_without_matching: bool = False,
+    raster_backend: Optional[str] = None,
+) -> Tuple[SlamState, StepMetrics]:
+    """``update_phase`` with the gate decided on the device and no host
+    read: the map update runs on every scan and ``torch.where`` keeps the
+    old levels, last update pose and a zero truncated count where the
+    gate did not fire (JAX's select form,
+    hector_slam_tpu/core/slam.py:124-131); the quads are packed from the
+    chosen levels on every scan (an unchanged map packs to the same
+    bits). A segment-compacted update masks its unchosen free set on the
+    device (``update_pyramid(..., sync_free=True)``). Bit-equal to
+    ``update_phase``; the body of ``update_phase_jit``."""
+    do_update = _gate(state, cfg, new_pose, map_without_matching)
+    updated, truncated = update_pyramid(
+        state.log_odds, new_pose, scan, cfg, None, raster_backend,
+        sync_free=True)
+    new_log_odds = tuple(torch.where(do_update, u, o)
+                         for u, o in zip(updated, state.log_odds))
+    return _assemble(
+        state, scan, new_pose, hessian, do_update, new_log_odds,
+        torch.where(do_update, new_pose, state.last_map_update_pose),
+        quads_of(new_log_odds, cfg.update.cell_model),
+        torch.where(do_update, truncated, 0))
 
 
 def slam_step(
@@ -168,16 +220,32 @@ def slam_step(
                         map_without_matching, beam_axis, raster_backend)
 
 
-def run_log(state: SlamState, scans: Scan, cfg: SlamConfig):
-    """Sequential replay over a stacked scan log (leading time axis).
+def slam_step_sync_free(
+    state: SlamState,
+    scan: Scan,
+    cfg: SlamConfig,
+    pose_hint: Optional[torch.Tensor] = None,
+    map_without_matching: bool = False,
+    raster_backend: Optional[str] = None,
+) -> Tuple[SlamState, StepMetrics]:
+    """``slam_step`` with no host read (``match_phase`` then
+    ``update_phase_sync_free``), bit-equal to it: the body that
+    ``slam_step_jit`` and ``run_log_jit`` capture."""
+    new_pose, hessian = match_phase(state, scan, cfg, pose_hint,
+                                    map_without_matching)
+    return update_phase_sync_free(state, scan, cfg, new_pose, hessian,
+                                  map_without_matching, raster_backend)
 
-    Returns (final state, poses f32[T,3], metrics stacked over T). A log
-    of no scans returns the state unchanged, poses f32[0,3] and metrics of
-    length 0, as the JAX package's ``lax.scan`` does."""
+
+def _replay(state: SlamState, scans: Scan, step):
+    """``step(state, scan)`` over a stacked scan log, eagerly: (final
+    state, poses f32[T,3], metrics stacked over T), and for a log of no
+    scans the state unchanged, poses f32[0,3] and length-0 metrics, as
+    the JAX package's ``lax.scan`` gives."""
     poses, metrics = [], []
     for t in range(scans.points.shape[0]):
-        state, m = slam_step(state, Scan(scans.points[t], scans.origo[t],
-                                         scans.mask[t]), cfg)
+        state, m = step(state, Scan(scans.points[t], scans.origo[t],
+                                    scans.mask[t]))
         poses.append(state.pose)
         metrics.append(m)
     if not metrics:
@@ -192,3 +260,180 @@ def run_log(state: SlamState, scans: Scan, cfg: SlamConfig):
             truncated_free_cells=empty(dtype=torch.int32))
     return (state, torch.stack(poses),
             StepMetrics(*(torch.stack(f) for f in zip(*metrics))))
+
+
+def run_log(state: SlamState, scans: Scan, cfg: SlamConfig):
+    """Sequential replay over a stacked scan log (leading time axis):
+    ``slam_step`` per scan, one host read of the gate each.
+
+    Returns (final state, poses f32[T,3], metrics stacked over T). A log
+    of no scans returns the state unchanged, poses f32[0,3] and metrics of
+    length 0, as the JAX package's ``lax.scan`` does."""
+    return _replay(state, scans, lambda st, sc: slam_step(st, sc, cfg))
+
+
+# ---- compiled entry points: CUDA graphs of the sync-free bodies ----------
+
+def state_leaves(state: SlamState):
+    """(map leaves: levels then quads, the five small leaves)."""
+    if not state.quads:
+        raise ValueError("the compiled steps need the state's quads "
+                         "(init_state, state_from_numpy and load_state "
+                         "give them)")
+    return ([*state.log_odds, *state.quads],
+            [state.pose, state.last_map_update_pose, state.covariance,
+             state.step, state.map_update_count])
+
+
+def state_from_leaves(maps, small) -> SlamState:
+    """The state of ``state_leaves``' two lists."""
+    levels = len(maps) // 2
+    return SlamState(log_odds=tuple(maps[:levels]), pose=small[0],
+                     last_map_update_pose=small[1], covariance=small[2],
+                     step=small[3], map_update_count=small[4],
+                     quads=tuple(maps[levels:]))
+
+
+def _donate(into: SlamState, new: SlamState, write: bool) -> SlamState:
+    """``new`` written into the donated state ``into`` and returned as
+    ``into``'s tensors (``write``), or ``new`` as it is (a graph's
+    warm-up, which writes nothing)."""
+    if not write:
+        return new
+    dst, src = state_leaves(into), state_leaves(new)
+    graphs.write_back(dst[0] + dst[1], src[0] + src[1])
+    return into
+
+
+def compiled_step(name: str, static_key, state: SlamState, inputs, step):
+    """One replay of the donating graph of ``step(state, *inputs) ->
+    (new state, metrics)``, a sync-free body: the graph is keyed on the
+    state's map memory, writes the new maps into it and the new small
+    leaves (pose, gate reference, covariance, step, count) into its own
+    buffers, which it returns as the new state's and the next call
+    overwrites. The metrics are fresh copies."""
+    maps, small = state_leaves(state)
+
+    def body(held, statics, write):
+        st = state_from_leaves(held, statics[:5])
+        new, metrics = step(st, *statics[5:])
+        return _donate(st, new, write), metrics
+
+    graph = graphs.entry(name, static_key, maps, small + list(inputs), body)
+    graph.replay()
+    new, metrics = graph.outputs
+    return new, graphs.fresh(metrics)
+
+
+def slam_step_jit(state: SlamState, scan: Scan, cfg: SlamConfig,
+                  pose_hint: Optional[torch.Tensor] = None,
+                  map_without_matching: bool = False):
+    """Compiled per-scan step (the JAX package's ``slam_step_jit``,
+    hector_slam_tpu/core/slam.py:169-176): ``slam_step_sync_free``, on
+    the card a CUDA graph captured once per static signature (``cfg``,
+    ``map_without_matching``, whether ``pose_hint`` is given, the shapes
+    and the state's map memory) and replayed with no host round trip.
+
+    The state is DONATED, as JAX's is: its map levels and quads are
+    updated in place, and the returned state's other leaves are the
+    graph's buffers, which the next call overwrites. A caller that keeps
+    a state from before a step clones it first. The metrics are new
+    tensors. A capture or replay failure raises. On CPU tensors the body
+    runs eagerly and nothing is donated."""
+    if not graphs.on_card(state.pose):
+        return slam_step_sync_free(state, scan, cfg, pose_hint,
+                                   map_without_matching)
+    hint = [] if pose_hint is None else [pose_hint]
+    return compiled_step(
+        "slam_step_jit", (cfg, map_without_matching, bool(hint)), state,
+        [*scan, *hint],
+        lambda st, points, origo, mask, *h: slam_step_sync_free(
+            st, Scan(points, origo, mask), cfg, h[0] if h else None,
+            map_without_matching))
+
+
+def match_phase_jit(state: SlamState, scan: Scan, cfg: SlamConfig,
+                    pose_hint: Optional[torch.Tensor] = None,
+                    map_without_matching: bool = False):
+    """The match half of ``slam_step_jit`` (the JAX package's
+    ``match_phase_jit``, hector_slam_tpu/core/slam.py:179-193): (new_pose,
+    hessian) for ``update_phase_jit``, as new tensors; the state is read,
+    not donated. On the card a CUDA graph of ``match_phase``;
+    ``map_without_matching`` matches nothing and returns the hint and the
+    state's covariance, as ``match_phase`` does."""
+    if not graphs.on_card(state.pose) or map_without_matching:
+        return match_phase(state, scan, cfg, pose_hint, map_without_matching)
+    start = state.pose if pose_hint is None else pose_hint
+    return graphs.call(
+        "match_phase_jit", (cfg,), state_leaves(state)[0],
+        [start, *scan],
+        lambda maps, statics: match_phase(
+            state_from_leaves(maps, [statics[0]] + [None] * 4),
+            Scan(*statics[1:4]), cfg))
+
+
+def update_phase_jit(state: SlamState, scan: Scan, cfg: SlamConfig,
+                     new_pose: torch.Tensor, hessian: torch.Tensor,
+                     map_without_matching: bool = False):
+    """The gate + map-update half of ``slam_step_jit`` (the JAX package's
+    ``update_phase_jit``, hector_slam_tpu/core/slam.py:196-204):
+    ``update_phase_sync_free`` as a CUDA graph on the card. The state is
+    DONATED, as in ``slam_step_jit``; the metrics are new tensors."""
+    if not graphs.on_card(state.pose):
+        return update_phase_sync_free(state, scan, cfg, new_pose, hessian,
+                                      map_without_matching)
+    return compiled_step(
+        "update_phase_jit", (cfg, map_without_matching), state,
+        [*scan, new_pose, hessian],
+        lambda st, points, origo, mask, pose, hess: update_phase_sync_free(
+            st, Scan(points, origo, mask), cfg, pose, hess,
+            map_without_matching))
+
+
+def run_log_jit(state: SlamState, scans: Scan, cfg: SlamConfig):
+    """Sequential replay with no host round trip per scan (the JAX
+    package's ``run_log_jit``, hector_slam_tpu/core/slam.py:207-225): on
+    the card one CUDA graph of a ``slam_step_sync_free`` step, captured
+    once per (``cfg``, log shape), reads scan t at a step counter kept on
+    the device, writes pose and metrics into slot t of [T] buffers and
+    advances the counter; the log is replayed as T graph launches and
+    read nowhere on the host. The state is not donated (JAX's is not):
+    the graph steps its own copy. Returns what ``run_log`` returns,
+    bit-equal to it, the empty log included. On CPU tensors the body runs
+    eagerly."""
+    n_scans = scans.points.shape[0]
+    if not graphs.on_card(state.pose) or n_scans == 0:
+        return _replay(state, scans,
+                       lambda st, sc: slam_step_sync_free(st, sc, cfg))
+    maps, small = state_leaves(state)
+    dev = state.pose.device
+    counter = torch.zeros((), dtype=torch.int64, device=dev)
+    # slot t of each: the pose and the five metrics after scan t
+    outs = [torch.empty((n_scans, *shape), dtype=dtype, device=dev)
+            for shape, dtype in (((3,), torch.float32), ((3,), torch.float32),
+                                 ((), torch.bool), ((), torch.float32),
+                                 ((), torch.int32), ((), torch.int32))]
+    n_maps = len(maps)
+    n_in = n_maps + 5
+
+    def body(held, statics, write):
+        st = state_from_leaves(statics[:n_maps], statics[n_maps:n_in])
+        points, origo, mask, t = statics[n_in:n_in + 4]
+        at = t.reshape(1)
+        new, metrics = slam_step_sync_free(st, Scan(
+            *(x.index_select(0, at)[0] for x in (points, origo, mask))),
+            cfg)
+        if write:
+            _donate(st, new, True)
+            for out, x in zip(statics[n_in + 4:], (new.pose, *metrics)):
+                out.index_copy_(0, at, x[None])
+            t.add_(1)
+
+    graph = graphs.entry("run_log_jit", (cfg,), [],
+                         maps + small + list(scans) + [counter] + outs, body)
+    for _ in range(n_scans):
+        graph.replay()
+    final = graphs.fresh(state_from_leaves(graph.statics[:n_maps],
+                                           graph.statics[n_maps:n_in]))
+    poses, *metrics = graphs.fresh(tuple(graph.statics[n_in + 4:]))
+    return final, poses, StepMetrics(*metrics)

@@ -234,6 +234,9 @@ interp_moments_kernel(const float4* __restrict__ quad, int h, int w,
   if (lane < kOut) out[b * kOut + lane] = mine;
 }
 
+constexpr int kMaxDevices = 64;
+int g_smem_raised[kMaxDevices];   // per device: the limit was raised
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Launches on `stream` and does
@@ -247,11 +250,22 @@ extern "C" int hs_interp_moments(const void* quad, int h, int w,
   if (b <= 0) return 0;
   if (n < 0 || n > kMaxPoints) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(n + kPad) * sizeof(float2);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  // the shared memory limit is raised once per device, at its first
+  // launch, to what the largest launch needs: a CUDA graph records
+  // launches, not attribute calls, so an eager launch (the graphs' warm-up,
+  // core/graphs.py) has raised it before any capture
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices) {
+    return static_cast<int>(cudaErrorInvalidDevice);
+  }
+  if (!g_smem_raised[dev]) {
+    err = cudaFuncSetAttribute(
         interp_moments_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        static_cast<int>((kMaxPoints + kPad) * sizeof(float2)));
     if (err != cudaSuccess) return static_cast<int>(err);
+    g_smem_raised[dev] = 1;
   }
   interp_moments_kernel<<<(b + kWarps - 1) / kWarps, kThreads, smem,
                           static_cast<cudaStream_t>(stream)>>>(

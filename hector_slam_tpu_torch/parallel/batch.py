@@ -15,6 +15,11 @@ for every cell set and level, core/mapping.update_pyramid). The JAX
 vmap turns the gate's ``lax.cond`` into a select; here non-gated robots'
 beams go to the sentinel, so their maps come out unchanged, and the one
 host sync per step skips the update when no robot gated.
+
+The compiled entry points (``match_hypotheses_jit``, ``fleet_step_jit``)
+are CUDA graphs of sync-free bodies on the card (core/graphs.py): the
+fleet's update runs on every step and ``torch.where`` keeps each ungated
+robot's levels, as JAX's vmapped select does.
 """
 
 from __future__ import annotations
@@ -24,12 +29,13 @@ from typing import Sequence, Tuple
 import torch
 
 from ..config import SlamConfig
+from ..core import graphs
 from ..core.collectives import psum
 from ..core.grid import pose_difference_larger_than, world_to_map_pose
 from ..core.interp import beam_sum, interp_quad, quad_pack_storage
 from ..core.mapping import update_pyramid
 from ..core.matcher import level_points, match_pyramid
-from ..core.slam import init_state, quads_of
+from ..core.slam import compiled_step, init_state, quads_of
 from ..ops.solve3 import det3
 from ..types import MatchResult, Scan, SlamState, StepMetrics
 
@@ -44,6 +50,26 @@ def match_hypotheses(
     matcher (the plain path; ``match_hypotheses_kernel`` is the one through
     the moments kernel). Returns MatchResult with leading axis H."""
     return match_pyramid(log_odds_pyramid, begin_poses, scan, cfg)
+
+
+def match_hypotheses_jit(
+    log_odds_pyramid: Sequence[torch.Tensor],
+    begin_poses: torch.Tensor,
+    scan: Scan,
+    cfg: SlamConfig,
+) -> MatchResult:
+    """``match_hypotheses`` compiled (the JAX package's
+    ``match_hypotheses_jit``, hector_slam_tpu/parallel/batch.py:42): on
+    the card a CUDA graph captured once per (``cfg``, shapes, map memory)
+    and replayed with no host round trip; the results are new tensors.
+    On CPU tensors it runs eagerly."""
+    if not graphs.on_card(begin_poses):
+        return match_hypotheses(log_odds_pyramid, begin_poses, scan, cfg)
+    return graphs.call(
+        "match_hypotheses_jit", (cfg,), list(log_odds_pyramid),
+        [begin_poses, *scan],
+        lambda levels, statics: match_hypotheses(
+            levels, statics[0], Scan(*statics[1:4]), cfg))
 
 
 def residual_for_poses(
@@ -123,6 +149,39 @@ def fleet_step(
         new_log_odds, new_quads = states.log_odds, states.quads
         truncated = torch.zeros(gates.shape, dtype=torch.int32,
                                 device=gates.device)
+    return _fleet_result(states, scans, new_pose, hessian, gates,
+                         new_log_odds, new_quads, truncated, beam_axis)
+
+
+def fleet_step_sync_free(
+    states: SlamState,
+    scans: Scan,
+    cfg: SlamConfig,
+) -> Tuple[SlamState, StepMetrics]:
+    """``fleet_step`` with no host read, bit-equal to it: the update runs
+    on every step with the ungated robots' beams masked, and
+    ``torch.where`` keeps each ungated robot's levels (JAX's vmapped
+    ``lax.cond`` is this select); the quads are packed from the chosen
+    levels on every step. The body of ``fleet_step_jit``."""
+    result = match_pyramid(states.log_odds, states.pose, scans, cfg,
+                           quads=states.quads)
+    new_pose, hessian = result.pose, result.hessian
+    gates = pose_difference_larger_than(
+        new_pose, states.last_map_update_pose,
+        cfg.map_update_distance_thresh, cfg.map_update_angle_thresh)
+    updated, truncated = update_pyramid(states.log_odds, new_pose, scans,
+                                        cfg, gates=gates)
+    new_log_odds = tuple(
+        torch.where(gates.reshape((-1,) + (1,) * (lo.dim() - 1)), u, lo)
+        for u, lo in zip(updated, states.log_odds))
+    return _fleet_result(states, scans, new_pose, hessian, gates,
+                         new_log_odds,
+                         quads_of(new_log_odds, cfg.update.cell_model),
+                         truncated)
+
+
+def _fleet_result(states, scans, new_pose, hessian, gates, new_log_odds,
+                  new_quads, truncated, beam_axis=None):
     new_states = SlamState(
         log_odds=new_log_odds,
         pose=new_pose,
@@ -141,6 +200,21 @@ def fleet_step(
         truncated_free_cells=truncated,
     )
     return new_states, metrics
+
+
+def fleet_step_jit(states: SlamState, scans: Scan, cfg: SlamConfig):
+    """``fleet_step`` compiled (the JAX package's ``fleet_step_jit``,
+    hector_slam_tpu/parallel/batch.py:119): ``fleet_step_sync_free``, on
+    the card a CUDA graph captured once per (``cfg``, shapes, the fleet's
+    map memory) and replayed with no host round trip. The states are
+    DONATED, as JAX's are (see ``slam_step_jit``); the metrics are new
+    tensors. On CPU tensors the body runs eagerly."""
+    if not graphs.on_card(states.pose):
+        return fleet_step_sync_free(states, scans, cfg)
+    return compiled_step(
+        "fleet_step_jit", (cfg,), states, scans,
+        lambda st, points, origo, mask: fleet_step_sync_free(
+            st, Scan(points, origo, mask), cfg))
 
 
 def init_fleet(cfg: SlamConfig, num_robots: int,

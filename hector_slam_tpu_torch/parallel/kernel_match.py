@@ -14,6 +14,8 @@ one does not:
   - hypothesis and beam padding: the kernel takes any B and N;
   - the window repair and budget fallback: no query leaves the kernel, so
     ``MatchDiag`` reports 0 slow, repaired and overflow counts.
+``match_hypotheses_kernel_jit`` replays the whole matcher, its 14 kernel
+launches and their torch-op epilogues, as one CUDA graph (core/graphs.py).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 
 from ..config import SlamConfig
 from ..types import MatchResult, Scan
+from ..core import graphs
 from ..core.grid import world_to_map_pose
 from ..core.matcher import (finish_level, guarded_step, level_points,
                             level_quad)
@@ -99,3 +102,32 @@ def match_hypotheses_kernel(
     zf = torch.zeros((), dtype=torch.float32, device=dev)
     diag = MatchDiag(zi, zi, zf + float(b * n * steps), zf)
     return MatchResult(pose=poses, hessian=hess), diag
+
+
+def match_hypotheses_kernel_jit(
+    log_odds_pyramid: Sequence[torch.Tensor],
+    begin_poses: torch.Tensor,
+    scan: Scan,
+    cfg: SlamConfig,
+    quads: Sequence[torch.Tensor] | None = None,
+    max_level: int | None = None,
+    min_level: int = 0,
+) -> Tuple[MatchResult, MatchDiag]:
+    """``match_hypotheses_kernel`` compiled: the counterpart of the JAX
+    package's ``match_hypotheses_pallas_jit``
+    (hector_slam_tpu/parallel/pallas_match.py:303). On the card a CUDA graph
+    of the whole matcher (every ``interp_moments`` launch and its GN
+    epilogue), captured once per (``cfg``, levels, whether ``quads`` are
+    given, shapes, the map's memory) and replayed with no host round
+    trip; the results are new tensors. On CPU tensors it runs eagerly."""
+    if not graphs.on_card(begin_poses):
+        return match_hypotheses_kernel(log_odds_pyramid, begin_poses, scan,
+                                       cfg, quads, max_level, min_level)
+    levels = len(log_odds_pyramid)
+    return graphs.call(
+        "match_hypotheses_kernel_jit",
+        (cfg, quads is not None, max_level, min_level),
+        [*log_odds_pyramid, *(quads or ())], [begin_poses, *scan],
+        lambda held, statics: match_hypotheses_kernel(
+            held[:levels], statics[0], Scan(*statics[1:4]), cfg,
+            held[levels:] or None, max_level, min_level))

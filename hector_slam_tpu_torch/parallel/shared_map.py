@@ -18,7 +18,9 @@ Each robot keeps its own pose, covariance and gate reference; robots
 whose gate has not fired contribute nothing (their beams are masked).
 The shared pyramid and its quad cache change once per step iff some gate
 fired, and a step where none fired skips the rasterization (one host
-sync per step decides).
+sync per step decides). ``shared_fleet_step_jit`` decides on the device
+instead (JAX's ``jnp.where(any_gate, updated, lo)``) and replays a CUDA
+graph on the card (core/graphs.py).
 """
 
 from __future__ import annotations
@@ -29,11 +31,12 @@ import numpy as np
 import torch
 
 from ..config import SlamConfig
+from ..core import graphs
 from ..core.collectives import por, psum
 from ..core.grid import pose_difference_larger_than
 from ..core.mapping import update_pyramid
 from ..core.matcher import match_pyramid
-from ..core.slam import init_state, quads_of
+from ..core.slam import compiled_step, init_state, quads_of
 from ..ops.solve3 import det3
 from ..types import Scan, SlamState, StepMetrics
 
@@ -83,20 +86,8 @@ def shared_fleet_step(
     cell sets are OR-combined over it and the truncated count summed
     (hector_slam_tpu/parallel/shared_map.py:102-159); the OR commutes, so
     every rank's map stays bit-equal to the unsharded step's."""
-    if map_without_matching:
-        new_poses = state.pose
-        hessians = state.covariance
-        gates = torch.ones(new_poses.shape[:1], dtype=torch.bool,
-                           device=new_poses.device)
-    else:
-        result = match_pyramid(state.log_odds, state.pose, scans, cfg,
-                               quads=state.quads)
-        new_poses = result.pose
-        hessians = result.hessian
-        gates = pose_difference_larger_than(
-            new_poses, state.last_map_update_pose,
-            cfg.map_update_distance_thresh, cfg.map_update_angle_thresh)
-
+    new_poses, hessians, gates = _match_and_gate(state, scans, cfg,
+                                                 map_without_matching)
     # OR-ed over the robot shards, so every rank takes this branch or none
     [any_gate] = por([gates.any()], robot_axis)
     any_gate = bool(any_gate)   # the one host sync per step
@@ -109,7 +100,27 @@ def shared_fleet_step(
         new_log_odds, new_quads = state.log_odds, state.quads
         truncated_total = torch.zeros((), dtype=torch.int32,
                                       device=gates.device)
+    return _result(state, scans, new_poses, hessians, gates,
+                   state.map_update_count + int(any_gate), new_log_odds,
+                   new_quads, truncated_total)
 
+
+def _match_and_gate(state, scans, cfg, map_without_matching):
+    """Every robot's new pose, Hessian and gate."""
+    if map_without_matching:
+        return (state.pose, state.covariance,
+                torch.ones(state.pose.shape[:1], dtype=torch.bool,
+                           device=state.pose.device))
+    result = match_pyramid(state.log_odds, state.pose, scans, cfg,
+                           quads=state.quads)
+    gates = pose_difference_larger_than(
+        result.pose, state.last_map_update_pose,
+        cfg.map_update_distance_thresh, cfg.map_update_angle_thresh)
+    return result.pose, result.hessian, gates
+
+
+def _result(state, scans, new_poses, hessians, gates, map_update_count,
+            new_log_odds, new_quads, truncated_total):
     metrics = StepMetrics(
         pose_delta=new_poses - state.pose,
         map_updated=gates,
@@ -124,7 +135,61 @@ def shared_fleet_step(
                                          state.last_map_update_pose),
         covariance=hessians,
         step=state.step + 1,
-        map_update_count=state.map_update_count + int(any_gate),
+        map_update_count=map_update_count,
         quads=new_quads,
     )
     return new_state, metrics
+
+
+def shared_fleet_step_sync_free(
+    state: SlamState,
+    scans: Scan,
+    cfg: SlamConfig,
+    map_without_matching: bool = False,
+) -> Tuple[SlamState, StepMetrics]:
+    """``shared_fleet_step`` with no host read, bit-equal to it: the
+    combined update runs on every step and the device keeps the old
+    levels where no gate fired (JAX's ``jnp.where(any_gate, updated,
+    lo)``, hector_slam_tpu/parallel/shared_map.py:138); the quads are
+    packed from the chosen levels and the update count is added on the
+    device. The body of ``shared_fleet_step_jit``."""
+    new_poses, hessians, gates = _match_and_gate(state, scans, cfg,
+                                                 map_without_matching)
+    any_gate = gates.any()
+    updated, truncated = update_pyramid(state.log_odds, new_poses, scans,
+                                        cfg, gates=gates)
+    new_log_odds = tuple(torch.where(any_gate, u, lo)
+                         for u, lo in zip(updated, state.log_odds))
+    return _result(state, scans, new_poses, hessians, gates,
+                   state.map_update_count + any_gate.to(torch.int32),
+                   new_log_odds,
+                   quads_of(new_log_odds, cfg.update.cell_model),
+                   torch.where(any_gate, truncated.sum().to(torch.int32), 0))
+
+
+def shared_fleet_step_jit(
+    state: SlamState,
+    scans: Scan,
+    cfg: SlamConfig,
+    map_without_matching: bool = False,
+    robot_axis=None,
+) -> Tuple[SlamState, StepMetrics]:
+    """``shared_fleet_step`` compiled (the JAX package's
+    ``shared_fleet_step_jit``, hector_slam_tpu/parallel/shared_map.py:
+    190): ``shared_fleet_step_sync_free``, on the card a CUDA graph
+    captured once per (``cfg``, ``map_without_matching``, shapes, the
+    shared map's memory) and replayed with no host round trip. The state
+    is DONATED, as JAX's is (see ``slam_step_jit``); the metrics are new
+    tensors. With ``robot_axis`` (a process group) the step runs eagerly:
+    graphs of collectives are not captured. On CPU tensors the body runs
+    eagerly."""
+    if robot_axis is not None:
+        return shared_fleet_step(state, scans, cfg, map_without_matching,
+                                 robot_axis)
+    if not graphs.on_card(state.pose):
+        return shared_fleet_step_sync_free(state, scans, cfg,
+                                           map_without_matching)
+    return compiled_step(
+        "shared_fleet_step_jit", (cfg, map_without_matching), state, scans,
+        lambda st, points, origo, mask: shared_fleet_step_sync_free(
+            st, Scan(points, origo, mask), cfg, map_without_matching))

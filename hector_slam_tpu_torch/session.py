@@ -33,7 +33,8 @@ import torch
 from .config import SlamConfig
 from .core.grid import map_to_world
 from .core.pose2d import compose, invert
-from .core.slam import init_state, match_phase, slam_step, update_phase
+from .core.slam import (init_state, match_phase_jit, slam_step_jit,
+                        update_phase_jit)
 from .export.geotiff import write_geotiff
 from .export.occupancy import grid_meta, to_occupancy_grid
 from .export.pose_output import pose_stamped
@@ -51,7 +52,8 @@ METHODS = ("pallas", "mxu", "quad")
 class SlamSession:
     """Stateful convenience wrapper around the functional core: holds the
     latest ``SlamState`` on the session's device and the host-side
-    bookkeeping; ``slam_step`` does the computation."""
+    bookkeeping; ``slam_step_jit`` does the computation (a CUDA graph
+    replay on the card, which updates the state in place)."""
 
     def __init__(self, cfg: SlamConfig = SlamConfig(),
                  laser: LaserModel = LaserModel(),
@@ -63,10 +65,11 @@ class SlamSession:
                  geotiff_base_path: str = "GeoTiffMap",
                  device="cuda"):
         """``timing_mode``: "step" (default) runs each scan through
-        ``slam_step``; "phases" runs ``match_phase`` and ``update_phase``
-        with a host barrier between them and records per-phase wall
-        times in timing_stats() (SURVEY.md §5). Both run the same torch
-        ops in the same order, so their poses are bit-equal.
+        ``slam_step_jit``; "phases" runs ``match_phase_jit`` and
+        ``update_phase_jit`` with a host barrier between them and records
+        per-phase wall times in timing_stats() (SURVEY.md §5), as the JAX
+        session does. Both run the same torch ops in the same order, so
+        their poses are bit-equal to ``slam_step``'s.
 
         ``geotiff_save_period`` > 0 enables the periodic geotiff autosave
         of the reference's geotiff node (geotiff_node.cpp:79-86,
@@ -225,15 +228,15 @@ class SlamSession:
         hint = self._hint(pose_hint, odom_pose)
         known = self.map_with_known_poses
         if self.timing_mode == "phases":
-            new_pose, hessian = match_phase(self.state, scan, self.cfg,
-                                            hint, known)
+            new_pose, hessian = match_phase_jit(self.state, scan, self.cfg,
+                                                hint, known)
             new_pose.cpu()   # completion barrier for the phase
             t1 = time.perf_counter()
-            self.state, metrics = update_phase(self.state, scan, self.cfg,
-                                               new_pose, hessian, known)
+            self.state, metrics = update_phase_jit(
+                self.state, scan, self.cfg, new_pose, hessian, known)
         else:
-            self.state, metrics = slam_step(self.state, scan, self.cfg,
-                                            hint, known)
+            self.state, metrics = slam_step_jit(self.state, scan, self.cfg,
+                                                hint, known)
         # pose, covariance and gate in one device->host copy
         host = torch.cat([self.state.pose, self.state.covariance.reshape(9),
                           metrics.map_updated.to(torch.float32).reshape(1)]

@@ -787,3 +787,152 @@ def test_checkpoint_written_on_card_loads_on_cpu(cuda_device, tmp_path):
     for got, want in zip(back.quads, fleet.quads):
         assert torch.equal(got, want)
     assert int((cpu.log_odds[0] > 0).sum()) > 100
+
+
+# ---- compiled entry points: CUDA graphs (core/graphs.py) -----------------
+
+GRAPH_SCANS = 40
+
+
+def _fixture_scans(dev, n=GRAPH_SCANS):
+    """The first ``n`` scans of the corridor fixture at BENCH_CONFIG, as a
+    stacked log and one by one, on ``dev``."""
+    import os
+    cfg = ht.BENCH_CONFIG
+    ranges, laser, _ = ht.load_log(os.path.join(
+        os.path.dirname(__file__), "fixtures", "corridor_utm30lx.npz"))
+    log = ht.stack_scans([ht.scan_from_ranges(
+        r, cfg.map.level_scale(0), laser, cfg.max_beams, device=dev)
+        for r in ranges[:n]])
+    return log, [ht.Scan(log.points[t], log.origo[t], log.mask[t])
+                 for t in range(n)]
+
+
+@pytest.mark.cuda
+def test_slam_step_jit_replays_bit_equal_to_slam_step_on_card(cuda_device):
+    """A graphed slam_step_jit (the update on every scan, the gate and the
+    seg fallback decided on the card) against the eager slam_step (its
+    gate and segment totals read on the host): poses, metrics and every
+    state leaf bit-equal scan by scan; the donated state updated in place;
+    run_log_jit bit-equal to both."""
+    from hector_slam_tpu_torch.core import graphs
+    cfg = ht.BENCH_CONFIG
+    log, scans = _fixture_scans(cuda_device)
+    eager = ht.init_state(cfg, device=cuda_device)
+    jit = ht.init_state(cfg, device=cuda_device)
+    maps = [t.data_ptr() for t in jit.log_odds + jit.quads]
+    gates = []
+    for sc in scans:
+        eager, me = ht.slam_step(eager, sc, cfg)
+        jit, mj = ht.slam_step_jit(jit, sc, cfg)
+        for a, b in zip(me, mj):
+            assert torch.equal(a, b)
+        assert torch.equal(eager.pose, jit.pose)
+        gates.append(bool(me.map_updated))
+    assert 3 < sum(gates) < GRAPH_SCANS
+    assert [t.data_ptr() for t in jit.log_odds + jit.quads] == maps
+    for a, b in zip(eager, jit):
+        for x, y in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(x, y)
+    start = ht.init_state(cfg, device=cuda_device)
+    final, poses, metrics = ht.run_log_jit(start, log, cfg)
+    assert torch.equal(final.log_odds[0], eager.log_odds[0])
+    assert torch.equal(poses[-1], eager.pose)
+    assert int(metrics.map_updated.sum()) == sum(gates)
+    assert int(start.step) == 0          # run_log_jit does not donate
+    assert [g.name for g in graphs.stats()][-2:] == ["slam_step_jit",
+                                                     "run_log_jit"]
+
+
+@pytest.mark.cuda
+def test_graph_replays_make_no_stream_sync_on_card(cuda_device):
+    """Once captured, slam_step_jit, the phase pair, run_log_jit and
+    match_hypotheses_kernel_jit replay with torch's sync debug mode set
+    to "error": no host read, no pageable copy, anywhere in a call."""
+    cfg = ht.BENCH_CONFIG
+    log, scans = _fixture_scans(cuda_device, 12)
+    state = ht.init_state(cfg, device=cuda_device)
+    phased = ht.init_state(cfg, device=cuda_device)
+    hyp = torch.zeros((64, 3), device=cuda_device)
+    from hector_slam_tpu_torch.core.slam import (match_phase_jit,
+                                                 update_phase_jit)
+
+    def calls(st, ph):
+        for sc in scans[:4]:
+            st, _ = ht.slam_step_jit(st, sc, cfg)
+            pose, hess = match_phase_jit(ph, sc, cfg)
+            ph, _ = update_phase_jit(ph, sc, cfg, pose, hess)
+        ht.run_log_jit(st, log, cfg)
+        ht.match_hypotheses_kernel_jit(st.log_odds, hyp, scans[0], cfg,
+                                       quads=st.quads)
+        return st, ph
+
+    state, phased = calls(state, phased)          # captures
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, phased = calls(state, phased)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert int(state.step) == 8 and int(phased.step) == 8
+
+
+@pytest.mark.cuda
+def test_graph_capture_failure_raises_on_card(cuda_device, monkeypatch):
+    """A body that reads the card on the host works eagerly (the warm-up)
+    but cannot be captured: slam_step_jit raises and returns nothing, no
+    graph is kept, and the next capture of a sound body works."""
+    from hector_slam_tpu_torch.core import graphs
+    from hector_slam_tpu_torch.core import slam as slam_mod
+    cfg = ht.SlamConfig(map=ht.MapConfig(size_x=128, size_y=128, levels=2),
+                        max_ray_cells=128)
+    _, scans = _fixture_scans(cuda_device, 2)
+    scans = [ht.scan_from_numpy(sc.points.cpu().numpy() / 4,
+                                sc.origo.cpu().numpy(),
+                                sc.mask.cpu().numpy(), device=cuda_device)
+             for sc in scans]
+    det3 = slam_mod.det3
+    monkeypatch.setattr(slam_mod, "det3",
+                        lambda h: det3(h) * float(h.abs().sum() >= 0))
+    graphs.clear()
+    state = ht.init_state(cfg, device=cuda_device)
+    with pytest.raises(RuntimeError, match="capture failed"):
+        ht.slam_step_jit(state, scans[0], cfg)
+    assert graphs.stats() == []
+    assert int(state.step) == 0
+    monkeypatch.setattr(slam_mod, "det3", det3)
+    eager, me = ht.slam_step(ht.init_state(cfg, device=cuda_device),
+                             scans[0], cfg)
+    jit, mj = ht.slam_step_jit(state, scans[0], cfg)
+    assert torch.equal(eager.pose, jit.pose) and torch.equal(
+        eager.log_odds[0], jit.log_odds[0])
+
+
+@pytest.mark.cuda
+def test_graph_launch_counts_add_up_per_replay_on_card(cuda_device):
+    """The kernel wrappers' counters count a graph's warm-up once and its
+    captured launches at every replay: slam_step_jit paints once a scan
+    (the update runs on every scan), match_hypotheses_kernel_jit launches
+    the moments kernel 14 times a call at BENCH_CONFIG."""
+    from hector_slam_tpu_torch.core import graphs
+    cfg = ht.BENCH_CONFIG
+    _, scans = _fixture_scans(cuda_device, 10)
+    graphs.clear()
+    paint0, mom0 = pc.paint_cells.launches, im.interp_moments.launches
+    state = ht.init_state(cfg, device=cuda_device)
+    for sc in scans:
+        state, _ = ht.slam_step_jit(state, sc, cfg)
+    [step] = graphs.stats()
+    assert step.per_replay == {"interp_moments": 0, "paint_cells": 1}
+    assert step.warmup == {"interp_moments": 0, "paint_cells": 1}
+    assert step.replays == 10 and step.pool_bytes > 0
+    assert pc.paint_cells.launches - paint0 == 1 + 10
+    hyp = state.pose + torch.zeros((256, 3), device=cuda_device)
+    for _ in range(3):
+        ht.match_hypotheses_kernel_jit(state.log_odds, hyp, scans[-1], cfg,
+                                       quads=state.quads)
+    assert graphs.stats()[-1].per_replay["interp_moments"] == 14
+    assert im.interp_moments.launches - mom0 == 14 + 3 * 14
+    assert pc.paint_cells.launches - paint0 == 11

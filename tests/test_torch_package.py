@@ -53,12 +53,32 @@ def test_port_imports_no_jax():
     # the modules of the last slice are among them
     for mod in ("core/covariance.py", "core/debug.py", "core/collectives.py",
                 "query/raycast.py", "export/markers.py", "io/checkpoint.py",
-                "io/attitude.py", "parallel/sharded.py"):
+                "io/attitude.py", "parallel/sharded.py", "core/graphs.py"):
         assert os.path.join(PKG, mod) in files, mod
     for path in files:
         for mod in _imported_modules(path):
             root = mod.split(".")[0]
             assert root not in FORBIDDEN, f"{path} imports {mod}"
+
+
+# the JAX names the port does not have, each with its reason in ROADMAP.md
+# ("Not ported"): the TPU routes (Pallas kernel, MXU one-hot matcher), the
+# jitted debug matcher and the JAX-array occupancy grid
+NOT_PORTED = {"match_hypotheses_mxu", "match_hypotheses_mxu_jit",
+              "match_hypotheses_pallas", "match_hypotheses_pallas_jit",
+              "match_pyramid_debug_jit", "to_occupancy_grid_jax"}
+
+
+def test_jax_only_names_are_the_documented_not_ported_list():
+    """Every name of the JAX package's ``__all__`` is in the port's, the
+    compiled entry points included, except the documented list."""
+    import hector_slam_tpu as hs
+    assert set(hs.__all__) - set(ht.__all__) == NOT_PORTED
+    for name in ("slam_step_jit", "run_log_jit", "match_hypotheses_jit",
+                 "fleet_step_jit", "shared_fleet_step_jit",
+                 "match_hypotheses_kernel_jit"):
+        assert callable(getattr(ht, name)), name
+    assert all(hasattr(ht, name) for name in ht.__all__)
 
 
 def test_every_kernel_source_has_a_counted_wrapper():
