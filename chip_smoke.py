@@ -40,16 +40,26 @@ the main path through the entry points a user calls:
      scan and the gate selects) and one in the capture's warm-up;
      session B ("phases", 100 scans: match_phase_jit, update_phase_jit)
      bit-equal to A; A kidnapped by (+0.6 m, -0.5 m, +0.25 rad) and recovered by
-     relocalize (n = 1024: "quad", then the default "pallas" — prune,
-     cascade, 14 moments launches) and relocalize_global (defaults, 14
-     launches), each within 0.1 m and 0.05 rad of the pose before the
-     kidnap and held against the JAX session's results
+     relocalize (n = 1024: "quad" through match_hypotheses_jit, then the
+     default "pallas" — prune, cascade_refine_jit, 14 moments launches a
+     replay) and relocalize_global (defaults: the 65,536-pose sweep
+     through residual_for_poses_jit, then cascade_refine_jit), each
+     within 0.1 m and 0.05 rad of the pose before the kidnap and held
+     against the JAX session's results
      (tests/fixtures/session_jax_reference.npz, written by
      tools/make_torch_session_reference.py): acceptance equal, kidnap
-     winners within 5 mm and 0.005 rad, equal free-cell counts; the
-     global sweep's peak device memory; a geotiff written; then each
-     recovery timed again, warm, from the kidnapped state (after the
-     path's launch counts were read);
+     winners within 5 mm and 0.005 rad, equal free-cell counts; each
+     first call one capture per graph (its warm-up launches counted) and
+     one replay; the graphs' pool bytes; the global sweep's peak device
+     memory; a geotiff written; then, after the path's launch counts
+     were read, each recovery from the kidnapped state eagerly (the
+     session's compiled routes swapped for their eager functions) and
+     graphed, in turns, first call and warm, bit-equal, no capture; each
+     compiled call against its eager function on the same inputs; the
+     run-once saver (python -m hector_slam_tpu_torch.save_geotiff) on
+     the card from a checkpoint of A, its files byte-equal to the CPU's;
+     three reset() calls, each followed by a scan, with no capture and no
+     new reserved device memory;
   6. batched matching — the bench.py workload: a map built with known
      poses, 4096 hypotheses (sigma 0.05) matched through
      match_hypotheses_kernel (14 kernel launches per call), a
@@ -160,6 +170,7 @@ rest of the repository beside it, it prints no result and exits 2.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -189,7 +200,15 @@ RELOCALIZE = dict(n_hypotheses=1024, sigma_xy=0.6, sigma_theta=0.3, seed=3)
 RECOVERED_M, RECOVERED_RAD = 0.1, 0.05        # recovery bars (test_session)
 JAX_WINNER_M, JAX_WINNER_RAD = 0.005, 0.005   # card vs JAX kidnap winner
 QUAD_RESIDUAL_REL = 0.1   # "quad" vs "pallas" winner residual (test_session)
-RECOVERY_WARM_CALLS = 3   # timed repeats of each recovery, after the checks
+# timed calls of each recovery from the kidnapped state, in this order
+RECOVERY_TURNS = ("graphed", "eager", "eager", "graphed", "graphed", "eager")
+# the session's compiled recovery routes and the eager functions they compile
+RECOVERY_ROUTES = {
+    "cascade_refine_jit": ("parallel.recovery", "cascade_refine"),
+    "match_hypotheses_kernel_jit": ("parallel.kernel_match",
+                                    "match_hypotheses_kernel"),
+    "match_hypotheses_jit": ("parallel.batch", "match_hypotheses"),
+    "residual_for_poses_jit": ("parallel.batch", "residual_for_poses")}
 # the queries phase's reference (tools/make_torch_queries_reference.py)
 QUERIES_REF = ROOT / "tests" / "fixtures" / "queries_jax_reference.npz"
 QUERY_RAY_CELLS = 1024     # distance_to_obstacle_batch's max_cells
@@ -670,14 +689,75 @@ def timed_call(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+@contextlib.contextmanager
+def swapped_recovery_routes(wrap):
+    """Within: each compiled route the session calls is replaced by
+    ``wrap(name, compiled, eager)``."""
+    import importlib
+
+    from hector_slam_tpu_torch import session as session_mod
+    saved = {n: getattr(session_mod, n) for n in RECOVERY_ROUTES}
+    for name, (mod, fn) in RECOVERY_ROUTES.items():
+        eager = getattr(importlib.import_module(
+            f"hector_slam_tpu_torch.{mod}"), fn)
+        setattr(session_mod, name, wrap(name, saved[name], eager))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(session_mod, name, fn)
+
+
+def eager_recovery_routes():
+    """Within: the session's recoveries run the eager functions their
+    compiled routes compile (the port before its recoveries were
+    graphed)."""
+    return swapped_recovery_routes(lambda name, compiled, eager: eager)
+
+
+def checked_recovery_routes(results):
+    """Within: each compiled route the session calls also runs its eager
+    function on the same inputs right after it, and appends to
+    ``results[name]`` whether every output tensor is bit-equal."""
+    def wrap(name, compiled, eager):
+        def call(*args, **kw):
+            got = compiled(*args, **kw)
+            results.setdefault(name, []).append(
+                tree_equal(got, eager(*args, **kw)))
+            return got
+        return call
+    return swapped_recovery_routes(wrap)
+
+
+def tree_equal(a, b) -> bool:
+    """Two (nested) tuples of tensors bit-equal, leaf by leaf."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return len(a) == len(b) and all(tree_equal(x, y) for x, y in zip(a, b))
+
+
+def same_recovery(a, b) -> bool:
+    """Two recovery results equal: the winner's bits, its residual,
+    acceptance and improvement (and the global sweep's fields)."""
+    return a.keys() == b.keys() and all(
+        np.array_equal(a[k], b[k]) if k == "pose" else a[k] == b[k]
+        for k in a)
+
+
 def phase_session(kernels, run_log_poses):
     """The SlamSession entry point on the corridor fixture at BENCH_CONFIG:
     session A replays all scans through process_ranges ("step"), session
     B the first SESSION_PHASES_SCANS ("phases"); then A is kidnapped and
     recovered by relocalize ("quad", then the default "pallas": prune,
-    cascade, 14 moments launches) and by relocalize_global (14 launches),
-    each held against tests/fixtures/session_jax_reference.npz; then the
-    geotiff export. Returns the path's launches."""
+    cascade) and by relocalize_global, through the compiled routes
+    (match_hypotheses_jit, cascade_refine_jit: 14 moments launches a
+    replay, residual_for_poses_jit), each held against
+    tests/fixtures/session_jax_reference.npz; then the geotiff export.
+    Off the path (after its counts are read): each recovery eagerly and
+    graphed in turns, bit-equal; each compiled call against its eager
+    function; the run-once saver on the card against the CPU; three
+    resets, each followed by a scan, with no capture and no new reserved
+    memory. Returns the path's launches."""
     import tempfile
 
     import hector_slam_tpu_torch as ht
@@ -712,42 +792,110 @@ def phase_session(kernels, run_log_poses):
     marks.append(read_counts(kernels))
     graph_marks.append(graphs.totals())
 
+    # A's replay, before the recoveries, the scans after them and the
+    # resets move its gates, count and timing
+    a_gates = gates.copy()
+    a_count = int(a.state.map_update_count)
+    stats_a, stats_b = a.timing_stats(), b.timing_stats()
     good = a.pose.copy()
     # a copy: the session's steps update their state in place (donation)
     kidnapped = graphs.fresh(a.state)._replace(pose=torch.from_numpy(
         good + KIDNAP).to(a.device))
-    a.state = kidnapped
-    quad, quad_ms = timed_call(lambda: a.relocalize(method="quad",
-                                                    **RELOCALIZE))
-    marks.append(read_counts(kernels))
-    a.state = kidnapped
-    pallas, pallas_ms = timed_call(lambda: a.relocalize(**RELOCALIZE))
-    marks.append(read_counts(kernels))
+
+    def recover(fn):
+        """(result, ms) of one recovery from the kidnapped state, the
+        graph counts marked after it."""
+        a.state = kidnapped
+        out = timed_call(fn)
+        marks.append(read_counts(kernels))
+        graph_marks.append(graphs.totals())
+        return out
+
+    quad, quad_ms = recover(lambda: a.relocalize(method="quad",
+                                                 **RELOCALIZE))
+    pallas, pallas_ms = recover(lambda: a.relocalize(**RELOCALIZE))
     p_next = a.process_ranges(ranges[-1])
     marks.append(read_counts(kernels))
-    a.state = kidnapped
+    graph_marks.append(graphs.totals())
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
-    glob, glob_ms = timed_call(a.relocalize_global)
+    glob, glob_ms = recover(a.relocalize_global)
     peak_mem = torch.cuda.max_memory_allocated()
-    marks.append(read_counts(kernels))
     with tempfile.TemporaryDirectory() as tmp:
         png, tfw = a.save_geotiff(str(Path(tmp) / "session_map"))
         png_size = read_png_size(png)
         tfw_lines = Path(tfw).read_text().split()
     extends = ht.map_extends(a.occupancy_grid())
     launches = read_counts(kernels)
-    # each recovery again from the kidnapped state, warm (the first calls
-    # above include the first use of their torch ops in this process)
-    warm_ms = {}
-    for name, fn in (
-            ("quad", lambda: a.relocalize(method="quad", **RELOCALIZE)),
-            ("pallas", lambda: a.relocalize(**RELOCALIZE)),
-            ("global", a.relocalize_global)):
-        warm_ms[name] = []
-        for _ in range(RECOVERY_WARM_CALLS):
+    recovery_graphs = [g._asdict() for g in graphs.stats() if g.name in (
+        "match_hypotheses_jit", "cascade_refine_jit",
+        "residual_for_poses_jit")]
+    cascades = [g for g in recovery_graphs
+                if g["name"] == "cascade_refine_jit"]
+
+    # each recovery again from the kidnapped state, eagerly (the compiled
+    # routes of the session swapped for their eager functions) and
+    # graphed, in turns; then once more with each compiled call held
+    # bit-equal to its eager function on the same inputs
+    recoveries = {
+        "quad": lambda: a.relocalize(method="quad", **RELOCALIZE),
+        "pallas": lambda: a.relocalize(**RELOCALIZE),
+        "global": a.relocalize_global}
+    first_ms = {n: {"graphed": ms} for n, ms in (
+        ("quad", quad_ms), ("pallas", pallas_ms), ("global", glob_ms))}
+    warm = graphs.totals()
+    turns, turns_equal = {}, {}
+    for name, fn in recoveries.items():
+        with eager_recovery_routes():
             a.state = kidnapped
-            warm_ms[name].append(timed_call(fn)[1])
+            first, first_ms[name]["eager"] = timed_call(fn)
+        turns[name], turns_equal[name] = [], True
+        for label in RECOVERY_TURNS:
+            a.state = kidnapped
+            if label == "eager":
+                with eager_recovery_routes():
+                    out, ms = timed_call(fn)
+            else:
+                out, ms = timed_call(fn)
+            turns[name].append((label, ms))
+            turns_equal[name] &= same_recovery(out, first)
+    graph_equal = {}
+    with checked_recovery_routes(graph_equal):
+        for fn in recoveries.values():
+            a.state = kidnapped
+            fn()
+    warm_graphs = {k: graphs.totals()[k] - warm[k]
+                   for k in ("captures", "replays")}
+
+    # the run-once saver on the card from a checkpoint of session A,
+    # against the same checkpoint rendered on the CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "session_a.npz")
+        ht.save_state(ckpt, a.state)
+        cli = subprocess.run(
+            [sys.executable, "-m", "hector_slam_tpu_torch.save_geotiff",
+             "--checkpoint", ckpt, "--out", str(Path(tmp) / "card")],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        from hector_slam_tpu_torch.save_geotiff import main as save_main
+        save_main(["--checkpoint", ckpt, "--out", str(Path(tmp) / "cpu"),
+                   "--device", "cpu"])
+        cli_equal = cli.returncode == 0 and all(
+            (Path(tmp) / f"card{ext}").read_bytes()
+            == (Path(tmp) / f"cpu{ext}").read_bytes()
+            for ext in (".png", ".tfw"))
+
+    # three resets, each followed by one scan: the step graph on these
+    # maps is replayed, and no device memory is reserved
+    torch.cuda.synchronize()
+    reset_from = (graphs.totals()["captures"], torch.cuda.memory_reserved())
+    resets = []
+    for _ in range(3):
+        a.reset()
+        a.process_ranges(ranges[0])
+        torch.cuda.synchronize()
+        resets.append(dict(
+            captures=graphs.totals()["captures"] - reset_from[0],
+            reserved_bytes=torch.cuda.memory_reserved() - reset_from[1]))
 
     def delta(i, name):
         return marks[i + 1][name] - marks[i][name]
@@ -757,7 +905,6 @@ def phase_session(kernels, run_log_poses):
 
     rmse = float(np.sqrt(np.mean((poses_a[:, :2] - seq["poses"][:, :2])
                                  ** 2)))
-    stats_a, stats_b = a.timing_stats(), b.timing_stats()
     recov = {}
     for name, out in (("quad", quad), ("pallas", pallas), ("global", glob)):
         recov[name] = dict(
@@ -775,8 +922,8 @@ def phase_session(kernels, run_log_poses):
         glob["pose"][:2] - ref["global_pose"][:2]))
     checks = {
         "a_bit_equal_run_log": bool(np.array_equal(poses_a, run_log_poses)),
-        "a_gates_equal_jax": bool((gates == seq["map_updated"]).all()),
-        "a_update_count": int(a.state.map_update_count) == int(
+        "a_gates_equal_jax": bool((a_gates == seq["map_updated"]).all()),
+        "a_update_count": a_count == int(
             seq["map_update_count"]) == int(ref["map_update_count"]),
         "a_rmse": rmse < RMSE_BUDGET_M,
         # slam_step_jit: one graph replay a scan, each painting once (the
@@ -797,9 +944,29 @@ def phase_session(kernels, run_log_poses):
                          for v in recov.values()),
         "quad_residual": abs(quad["residual"] - pallas["residual"])
         < QUAD_RESIDUAL_REL * max(pallas["residual"], 1.0),
+        # first calls: each capture's warm-up and one replay; the
+        # cascade graphs launch the moments kernel 14 times a replay
         "moments_launches": delta(2, "interp_moments") == 0
-        and delta(3, "interp_moments") == 14
-        and delta(5, "interp_moments") == 14,
+        and delta(3, "interp_moments") == 2 * 14
+        and delta(5, "interp_moments") == 2 * 14
+        and len(cascades) == 2 and all(
+            g["per_replay"]["interp_moments"] == 14
+            and g["warmup"]["interp_moments"] == 14 for g in cascades),
+        "recovery_graphs": [(graph_delta(i, "captures"),
+                             graph_delta(i, "replays"))
+                            for i in (2, 3, 4, 5)]
+        == [(1, 1), (1, 1), (1, 1), (2, 2)] and len(recovery_graphs) == 4,
+        "warm_calls_replay": warm_graphs["captures"] == 0
+        and warm_graphs["replays"] > 0,
+        "graphed_equal_eager": all(turns_equal.values())
+        and set(graph_equal) == {"match_hypotheses_jit",
+                                 "cascade_refine_jit",
+                                 "residual_for_poses_jit"}
+        and all(all(v) for v in graph_equal.values()),
+        "resets_keep_graph": all(r["captures"] == 0
+                                 and r["reserved_bytes"] == 0
+                                 for r in resets),
+        "save_geotiff_cli": cli_equal,
         "fast_path": pallas["fast_path_fraction"] == 1.0
         and glob["fast_path_fraction"] == 1.0,
         "tracks_after": float(np.linalg.norm(p_next[:2] - good[:2]))
@@ -820,8 +987,8 @@ def phase_session(kernels, run_log_poses):
     ok = all(checks.values())
     emit("session", ok=ok, checks=checks, scans=len(ranges),
          phases_scans=SESSION_PHASES_SCANS, pose_rmse_m=rmse,
-         gate_agreement=int((gates == seq["map_updated"]).sum()),
-         map_update_count=int(a.state.map_update_count),
+         gate_agreement=int((a_gates == seq["map_updated"]).sum()),
+         map_update_count=a_count,
          ms_per_scan_p50=stats_a["p50_ms"],
          ms_per_scan_mean=stats_a["mean_ms"],
          ms_per_scan_p95=stats_a["p95_ms"],
@@ -831,9 +998,21 @@ def phase_session(kernels, run_log_poses):
          match_mean_ms=stats_b["match_mean_ms"],
          update_mean_ms=stats_b["update_mean_ms"],
          relocalize_quad_ms=quad_ms, relocalize_pallas_ms=pallas_ms,
-         relocalize_global_ms=glob_ms, recovery_warm_ms=warm_ms,
-         recovery_warm_median_ms={k: float(np.median(v))
-                                  for k, v in warm_ms.items()},
+         relocalize_global_ms=glob_ms, recovery_first_ms=first_ms,
+         recovery_warm_ms_in_turns=turns,
+         recovery_warm_median_ms={n: {label: float(np.median(
+             [ms for lb, ms in t if lb == label]))
+             for label in ("graphed", "eager")} for n, t in turns.items()},
+         recovery_graph_counts={step: {k: graph_delta(i, k) for k in (
+             "captures", "replays")} for i, step in enumerate((
+                 "session_a", "session_b", "relocalize_quad",
+                 "relocalize_pallas", "track_after", "relocalize_global"))},
+         recovery_graphs=recovery_graphs,
+         graph_pool_bytes_total=sum(g.pool_bytes for g in graphs.stats()),
+         warm_graph_counts=warm_graphs, graphed_equal_eager=graph_equal,
+         resets=resets, save_geotiff_cli=dict(
+             returncode=cli.returncode, files_equal_cpu=cli_equal,
+             stderr=cli.stderr[-2000:]),
          recoveries=recov,
          good_pose=good.tolist(), jax_good_pose=ref["good_pose"].tolist(),
          good_vs_jax_m=float(np.linalg.norm(good[:2]

@@ -16,8 +16,9 @@ vmap turns the gate's ``lax.cond`` into a select; here non-gated robots'
 beams go to the sentinel, so their maps come out unchanged, and the one
 host sync per step skips the update when no robot gated.
 
-The compiled entry points (``match_hypotheses_jit``, ``fleet_step_jit``)
-are CUDA graphs of sync-free bodies on the card (core/graphs.py): the
+The compiled entry points (``match_hypotheses_jit``,
+``residual_for_poses_jit``, ``fleet_step_jit``) are CUDA graphs of
+sync-free bodies on the card (core/graphs.py): the
 fleet's update runs on every step and ``torch.where`` keeps each ungated
 robot's levels, as JAX's vmapped select does.
 """
@@ -99,6 +100,37 @@ def residual_for_poses(
     m, _, _ = interp_quad(quad, tuple(log_odds.shape[-2:]),
                           torch.stack([tx, ty], dim=-1))
     return beam_sum(torch.where(scan.mask, 1.0 - m, 0.0))
+
+
+def residual_for_poses_jit(
+    log_odds: torch.Tensor,
+    poses_world: torch.Tensor,
+    scan: Scan,
+    cfg: SlamConfig,
+    quad: torch.Tensor | None = None,
+    level: int = 0,
+) -> torch.Tensor:
+    """``residual_for_poses`` compiled (the JAX package's
+    ``residual_for_poses_jit``, hector_slam_tpu/parallel/batch.py:83-84,
+    static ``cfg`` and ``level``): on the card a CUDA graph captured once
+    per (``cfg``, ``level``, whether ``quad`` is given, shapes, the map's
+    memory) and replayed with no host round trip; the residuals are a new
+    tensor. On CPU tensors it runs eagerly.
+
+    Unlike XLA, which frees a call's temporaries when it returns, the
+    graph keeps them in its pool for as long as it lives: at the global
+    sweep's 65,536 poses that is the ~1 GB of the interpolation's
+    intermediates (PERF.md §7)."""
+    if not graphs.on_card(poses_world):
+        return residual_for_poses(log_odds, poses_world, scan, cfg, quad,
+                                  level)
+    held = [log_odds] if quad is None else [log_odds, quad]
+    return graphs.call(
+        "residual_for_poses_jit", (cfg, level, quad is not None), held,
+        [poses_world, *scan],
+        lambda maps, statics: residual_for_poses(
+            maps[0], statics[0], Scan(*statics[1:4]), cfg,
+            maps[1] if len(maps) > 1 else None, level))
 
 
 def best_hypothesis(

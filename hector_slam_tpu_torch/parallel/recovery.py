@@ -17,6 +17,9 @@ kept as they are, because they decide which hypotheses survive.
 Selections break ties as ``jax.lax.top_k(-scores, k)`` does: ascending
 scores, equal scores by lower index, NaN after every number
 (``_smallest``); ``torch.topk`` promises no order among ties.
+
+``cascade_refine_jit`` replays the whole cascade, both matcher stages and
+the selection between them, as one CUDA graph (core/graphs.py).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from ..config import SlamConfig
+from ..core import graphs
 from ..types import Scan
 from .batch import residual_for_poses
 from .kernel_match import MatchDiag, match_hypotheses_kernel
@@ -54,9 +58,11 @@ def _argmin_first(x: torch.Tensor) -> torch.Tensor:
 
 
 def _pin_first(scores: torch.Tensor) -> torch.Tensor:
-    """``scores`` with slot 0 set to -inf, so that it always survives."""
+    """``scores`` with slot 0 set to -inf, so that it always survives (a
+    fill, not an item assignment, which copies a host scalar and so
+    cannot be captured in a CUDA graph)."""
     pinned = scores.clone()
-    pinned[0] = -float("inf")
+    pinned[0].fill_(-float("inf"))
     return pinned
 
 
@@ -159,7 +165,7 @@ def cascade_refine(
         d_th = (poses_g[..., 2] - best_pose[:, None, 2]).abs()
         d_y = (poses_g[..., 1] - best_pose[:, None, 1]).abs()
         repl = (s_g > kth[:, None]) | (d_th > _TRUST_THETA) | (d_y > _TRUST_Y)
-        repl[0, 0] = False   # the incumbent: the acceptance bar
+        repl[0, 0].fill_(False)   # the incumbent: the acceptance bar
         surv = torch.where(repl[..., None], best_pose[:, None, :],
                            poses_g).reshape(-1, 3)
     else:
@@ -168,6 +174,42 @@ def cascade_refine(
                                        quads=quads, max_level=lvl,
                                        min_level=0)
     return res2, MatchDiag(*(a + b for a, b in zip(d1, d2)))
+
+
+def cascade_refine_jit(
+    log_odds_pyramid: Sequence[torch.Tensor],
+    hyp: torch.Tensor,
+    scan: Scan,
+    cfg: SlamConfig,
+    quads=None,
+    mid_top_k: int = 256,
+    beam_stride: int = 4,
+):
+    """``cascade_refine`` compiled (the JAX package's
+    ``cascade_refine_jit``, hector_slam_tpu/parallel/recovery.py:203-206):
+    on the card ONE CUDA graph of both stages — the coarse
+    ``match_hypotheses_kernel`` (4 moments launches on ``BENCH_CONFIG``),
+    the group re-selection with its trust region, and the fine stages
+    (4 + 6 launches) — captured once per (``cfg``, whether ``quads`` are
+    given, ``mid_top_k``, ``beam_stride``, shapes, the map's memory) and
+    replayed with no host round trip. Its branches are decided on shapes
+    alone, so the body reads nothing on the host. Returns (MatchResult,
+    MatchDiag) as new tensors. On CPU tensors it runs eagerly.
+
+    JAX's static ``k_budget``, ``interpret`` and ``wr`` have no
+    counterpart: they size and run the TPU kernel's windows, and the
+    card's kernel has none (``kernel_match.py``)."""
+    if not graphs.on_card(hyp):
+        return cascade_refine(log_odds_pyramid, hyp, scan, cfg, quads,
+                              mid_top_k, beam_stride)
+    levels = len(log_odds_pyramid)
+    return graphs.call(
+        "cascade_refine_jit",
+        (cfg, quads is not None, mid_top_k, beam_stride),
+        [*log_odds_pyramid, *(quads or ())], [hyp, *scan],
+        lambda held, statics: cascade_refine(
+            held[:levels], statics[0], Scan(*statics[1:4]), cfg,
+            held[levels:] or None, mid_top_k, beam_stride))
 
 
 def auto_prune_top_k(n_hypotheses: int) -> int:

@@ -40,13 +40,36 @@ from .export.occupancy import grid_meta, to_occupancy_grid
 from .export.pose_output import pose_stamped
 from .export.trajectory import TrajectoryRecorder
 from .io.scanlog import LaserModel, scan_from_points, scan_from_ranges
-from .parallel.batch import match_hypotheses, residual_for_poses
-from .parallel.kernel_match import match_hypotheses_kernel
-from .parallel.recovery import (auto_prune_top_k, cascade_refine,
+from .parallel.batch import (match_hypotheses_jit, residual_for_poses,
+                             residual_for_poses_jit)
+from .parallel.kernel_match import match_hypotheses_kernel_jit
+from .parallel.recovery import (auto_prune_top_k, cascade_refine_jit,
                                 prune_hypotheses_coarse)
 from .types import Scan, SlamState, resolve_device
 
 METHODS = ("pallas", "mxu", "quad")
+
+
+def _leaves(state: SlamState) -> List[torch.Tensor]:
+    return [*state.log_odds, *state.quads, state.pose,
+            state.last_map_update_pose, state.covariance, state.step,
+            state.map_update_count]
+
+
+def _write_into(dst: SlamState, src: SlamState) -> bool:
+    """Copies every leaf of ``src`` into the same leaf of ``dst`` (from any
+    device). Returns False, writing nothing, when the two differ in
+    structure, shape or dtype, or when two of ``dst``'s leaves share
+    memory (a copy into one would change the other)."""
+    d, s = _leaves(dst), _leaves(src)
+    if len(d) != len(s) or any((a.shape, a.dtype) != (b.shape, b.dtype)
+                               for a, b in zip(d, s)):
+        return False
+    if len({t.untyped_storage().data_ptr() for t in d}) != len(d):
+        return False
+    for a, b in zip(d, s):
+        a.copy_(b)
+    return True
 
 
 class SlamSession:
@@ -114,9 +137,16 @@ class SlamSession:
         self.paused = False
 
     def reset(self) -> None:
-        """Full reset: fresh maps on the session's device, zero pose
-        (syscommand "reset")."""
-        self.state = init_state(self.cfg, self.device)
+        """Full reset: fresh maps, zero pose (syscommand "reset"). The
+        fresh values are written into the state's own tensors, so the
+        step graph keyed on the maps' memory is replayed on the next scan,
+        not captured again, as the JAX session reuses its compiled step.
+        Like a donating step, this overwrites the maps of any state that
+        shares them (clone a state you keep with ``graphs.fresh``). The
+        fresh values are made on the host and copied in, so a reset takes
+        no device memory (its values are exact: 0, 0.5, FLT_MAX)."""
+        if not _write_into(self.state, init_state(self.cfg, "cpu")):
+            self.state = init_state(self.cfg, self.device)
         self.trajectory.reset()
         self._scan_times_ms.clear()
         self._match_times_ms.clear()
@@ -309,13 +339,18 @@ class SlamSession:
         session pose with the winner. ``scan`` defaults to the last
         processed scan.
 
-        ``method`` keeps the JAX package's names:
-          - "pallas": ``match_hypotheses_kernel`` (the moments kernel),
-            through ``cascade_refine`` when the batch was pruned;
-          - "mxu":    the same kernel on the whole batch, no cascade;
-          - "quad":   the torch-op ``match_hypotheses``;
+        ``method`` keeps the JAX package's names, each run through a
+        compiled entry point as the JAX session runs it (a CUDA graph on
+        the card, kept for the session's maps; eager on the CPU):
+          - "pallas": ``match_hypotheses_kernel_jit`` (the moments kernel),
+            through ``cascade_refine_jit`` when the batch was pruned;
+          - "mxu":    ``match_hypotheses_kernel_jit`` on the whole batch,
+            no cascade;
+          - "quad":   ``match_hypotheses_jit``, the torch-op matcher;
           - None:     "pallas" on the card, "quad" on the CPU.
         ``use_pallas`` (bool) is the legacy spelling of "pallas"/"quad".
+        The pruning, the finest-level scoring and the acceptance stay
+        eager, as in the JAX session.
 
         ``theta_stratified`` (default: on for n >= 128) samples theta on
         a grid of n/128 values over +-2 sigma_theta, one per 128
@@ -367,17 +402,17 @@ class SlamSession:
         level, and re-seed the session iff some challenger strictly beats
         the refined incumbent in slot 0 (the incumbent is the bar, never
         applied). ``use_cascade`` routes "pallas" through
-        ``cascade_refine`` (needs >= 2 levels)."""
+        ``cascade_refine_jit`` (needs >= 2 levels)."""
         st = self.state
         diag = None
         if method == "pallas" and use_cascade and self.cfg.map.levels >= 2:
-            result, diag = cascade_refine(st.log_odds, hyp, scan, self.cfg,
-                                          quads=st.quads)
+            result, diag = cascade_refine_jit(st.log_odds, hyp, scan,
+                                              self.cfg, quads=st.quads)
         elif method in ("pallas", "mxu"):
-            result, diag = match_hypotheses_kernel(st.log_odds, hyp, scan,
-                                                   self.cfg, quads=st.quads)
+            result, diag = match_hypotheses_kernel_jit(
+                st.log_odds, hyp, scan, self.cfg, quads=st.quads)
         else:
-            result = match_hypotheses(st.log_odds, hyp, scan, self.cfg)
+            result = match_hypotheses_jit(st.log_odds, hyp, scan, self.cfg)
         res = residual_for_poses(st.log_odds[0], result.pose, scan, self.cfg,
                                  quad=st.quads[0] if st.quads else None)
         res = res.cpu().numpy()
@@ -414,7 +449,9 @@ class SlamSession:
            repeated to ``n_positions``, when there are fewer) x
            ``n_theta`` headings uniform over [-pi, pi), scored by the
            coarsest level's residual with a ``beam_stride``-subsampled
-           scan. One residual pass, no GN.
+           scan through ``residual_for_poses_jit``. One residual pass, no
+           GN; on the card its graph keeps the pass's temporaries (~1 GB
+           at the defaults) in its pool while it is cached.
         2. Refine: the incumbent and the ``top_k - 1`` best sweep entries,
            sorted by heading, through ``_refine_and_accept`` with the
            cascade — ``relocalize``'s acceptance bar.
@@ -450,7 +487,7 @@ class SlamSession:
         sub = Scan(points=scan.points[::beam_stride], origo=scan.origo,
                    mask=scan.mask[::beam_stride])
         quads = self.state.quads
-        res_sweep = residual_for_poses(
+        res_sweep = residual_for_poses_jit(
             self.state.log_odds[coarse],
             torch.from_numpy(sweep).to(self.device), sub, self.cfg,
             quad=quads[coarse] if len(quads) > coarse else None,

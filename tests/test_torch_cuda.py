@@ -23,6 +23,8 @@ matmul_stationary within MM_ULPS bf16 ulps per element, because the
 tensor core sums a rep's products in its own order (the plain version
 and the JAX probe read 0 ulps apart on the CPU, tests/test_torch_probes.py)."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -699,9 +701,10 @@ def test_recovery_selection_on_card_matches_cpu(cuda_device):
 @pytest.mark.cuda
 def test_session_relocalize_on_card_matches_cpu(cuda_device):
     """A kidnapped session on the card recovers through the moments kernel
-    (prune, cascade: 4 + 6 launches on two levels) as the same session on
-    the CPU does through the kernel's plain version: the same acceptance,
-    winners within 5 mm and 0.005 rad."""
+    (prune, then cascade_refine_jit's graph: 4 + 6 launches on two
+    levels, counted once more in its first call's warm-up) as the same
+    session on the CPU does through the kernel's plain version: the same
+    acceptance, winners within 5 mm and 0.005 rad."""
     from hector_slam_tpu_torch.io.simulator import corridor_trajectory
     cfg = ht.SlamConfig(map=ht.MapConfig(resolution=0.05, size_x=256,
                                          size_y=256, levels=2),
@@ -731,7 +734,8 @@ def test_session_relocalize_on_card_matches_cpu(cuda_device):
               method="pallas")
     before = im.interp_moments.launches
     got = card.relocalize(**kw)
-    assert im.interp_moments.launches - before == 10
+    # cascade_refine_jit's first call: its warm-up and one replay
+    assert im.interp_moments.launches - before == 10 + 10
     want = cpu.relocalize(scan=ht.scan_from_ranges(
         ranges[-1], cfg.map.level_scale(0), laser, cfg.max_beams,
         device="cpu"), **kw)
@@ -936,3 +940,129 @@ def test_graph_launch_counts_add_up_per_replay_on_card(cuda_device):
     assert graphs.stats()[-1].per_replay["interp_moments"] == 14
     assert im.interp_moments.launches - mom0 == 14 + 3 * 14
     assert pc.paint_cells.launches - paint0 == 11
+
+
+# ---- the session's recoveries through compiled routes, reset, CLI --------
+
+
+def _kidnap_inputs(dev, n=1024, seed=3):
+    """A BENCH_CONFIG state after 40 fixture scans, its last scan, and
+    ``relocalize``'s 1,024 theta-stratified draws around the pose shifted
+    by (+0.6 m, -0.5 m, +0.25 rad), pruned to 256 on the card."""
+    from hector_slam_tpu_torch.parallel import recovery as rec
+    cfg = ht.BENCH_CONFIG
+    log, scans = _fixture_scans(dev)
+    state, _, _ = ht.run_log_jit(ht.init_state(cfg, device=dev), log, cfg)
+    center = state.pose.cpu().numpy() + np.asarray([0.6, -0.5, 0.25],
+                                                   np.float32)
+    rng = np.random.default_rng(seed)
+    thetas = center[2] + 0.3 * (-2.0 + 4.0 * (np.arange(n // 128) + 0.5)
+                                / (n // 128))
+    hyp = np.c_[center[0] + rng.normal(0, 0.6, n),
+                center[1] + rng.normal(0, 0.6, n),
+                np.repeat(thetas, 128)].astype(np.float32)
+    hyp[0] = center
+    pruned = rec.prune_hypotheses_coarse(
+        state.log_odds, torch.from_numpy(hyp).to(dev), scans[-1], cfg, 256,
+        quads=state.quads)
+    return state, scans[-1], pruned
+
+
+@pytest.mark.cuda
+def test_recovery_graphs_bit_equal_to_eager_on_card(cuda_device):
+    """cascade_refine_jit (one graph: 4 + 4 + 6 moments launches a replay)
+    and residual_for_poses_jit (level 0 with the full scan, level 2 with
+    the sweep's 8-strided one, each with and without the quads) on the card:
+    bit-equal to their eager bodies, and their replays make no stream
+    sync."""
+    from hector_slam_tpu_torch.core import graphs
+    from hector_slam_tpu_torch.parallel import batch
+    from hector_slam_tpu_torch.parallel import recovery as rec
+    cfg = ht.BENCH_CONFIG
+    state, scan, hyp = _kidnap_inputs(cuda_device)
+    graphs.clear()
+    mom0 = im.interp_moments.launches
+    want = rec.cascade_refine(state.log_odds, hyp, scan, cfg,
+                              quads=state.quads)
+    got = rec.cascade_refine_jit(state.log_odds, hyp, scan, cfg,
+                                 quads=state.quads)
+    assert all(torch.equal(a, b) for a, b in zip(want[0] + want[1],
+                                                 got[0] + got[1]))
+    [cascade] = graphs.stats()
+    assert cascade.per_replay["interp_moments"] == 14
+    assert im.interp_moments.launches - mom0 == 14 * 3   # eager, warm-up, 1
+    sub = ht.Scan(scan.points[::8], scan.origo, scan.mask[::8])
+    calls = []
+    for level, sc in ((0, scan), (2, sub)):
+        for quad in (state.quads[level], None):
+            calls.append((state.log_odds[level], hyp, sc, cfg, quad, level))
+            assert torch.equal(batch.residual_for_poses_jit(*calls[-1]),
+                               batch.residual_for_poses(*calls[-1]))
+    assert len(graphs.stats()) == 1 + len(calls)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = rec.cascade_refine_jit(state.log_odds, hyp, scan, cfg,
+                                       quads=state.quads)
+        for args in calls:
+            batch.residual_for_poses_jit(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(again[0].pose, want[0].pose)
+    assert graphs.stats()[0].replays == 2
+
+
+@pytest.mark.cuda
+def test_session_reset_keeps_the_step_graph_on_card(cuda_device):
+    """Three reset() calls, each followed by one scan: no new capture, no
+    new reserved device memory, the state bit-equal to init_state's
+    before the scan and the poses to a fresh session's after it."""
+    from hector_slam_tpu_torch.core import graphs
+    cfg = ht.BENCH_CONFIG
+    _, scans = _fixture_scans(cuda_device, 6)
+    sess = ht.SlamSession(cfg)
+    for sc in scans:
+        sess.process_scan(sc)
+    fresh = ht.SlamSession(cfg)
+    want = fresh.process_scan(scans[0])
+    init = ht.init_state(cfg, device=cuda_device)
+    torch.cuda.synchronize()
+    captures = graphs.totals()["captures"]
+    reserved = torch.cuda.memory_reserved()
+    ptrs = [t.data_ptr() for t in sess.state.log_odds + sess.state.quads]
+    for _ in range(3):
+        sess.reset()
+        assert all(torch.equal(a, b) for a, b in zip(
+            sess.state.log_odds + sess.state.quads,
+            init.log_odds + init.quads))
+        np.testing.assert_array_equal(sess.process_scan(scans[0]), want)
+        torch.cuda.synchronize()
+        assert graphs.totals()["captures"] == captures
+        assert torch.cuda.memory_reserved() == reserved
+    assert [t.data_ptr() for t in sess.state.log_odds
+            + sess.state.quads] == ptrs
+
+
+@pytest.mark.cuda
+def test_save_geotiff_cli_on_card(cuda_device, tmp_path):
+    """python -m hector_slam_tpu_torch.save_geotiff on the card (its
+    default device), from a checkpoint and from a log: the files equal
+    those rendered on the CPU."""
+    from hector_slam_tpu_torch.save_geotiff import main
+    cfg = ht.BENCH_CONFIG
+    log, _ = _fixture_scans(cuda_device, 12)
+    state, _, _ = ht.run_log_jit(ht.init_state(cfg, device=cuda_device),
+                                 log, cfg)
+    ckpt = str(tmp_path / "state.npz")
+    ht.save_state(ckpt, state)
+    ranges, laser, _ = ht.load_log(os.path.join(
+        os.path.dirname(__file__), "fixtures", "corridor_utm30lx.npz"))
+    scan_log = str(tmp_path / "log.npz")
+    ht.save_log(scan_log, ranges[:12], laser=laser)
+    for src in (["--checkpoint", ckpt], ["--log", scan_log]):
+        card, cpu = str(tmp_path / "card"), str(tmp_path / "cpu")
+        assert main([*src, "--out", card]) == 0
+        assert main([*src, "--out", cpu, "--device", "cpu"]) == 0
+        for ext in (".png", ".tfw"):
+            with open(card + ext, "rb") as a, open(cpu + ext, "rb") as b:
+                assert a.read() == b.read(), (src, ext)

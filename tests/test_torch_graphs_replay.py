@@ -305,3 +305,29 @@ def test_launch_counts_add_up_per_replay(as_on_card, log, monkeypatch):
     assert after["launches"]["paint_cells"] - totals["launches"][
         "paint_cells"] == 6
     assert after["replays"] - totals["replays"] == 5
+
+
+def test_session_reset_keeps_the_step_graph(as_on_card, log):
+    """``SlamSession.reset`` writes the fresh state into the donated
+    state's tensors (the graph's own small leaves among them): the next
+    scans replay the step graph with no new capture, bit-equal to a
+    fresh session's on the graph path."""
+    _, scans = log
+    sess = ht.SlamSession(CFG, device="cpu")
+    for sc in scans[:4]:
+        sess.process_scan(sc)
+    captures = graphs.totals()["captures"]
+    for _ in range(3):
+        sess.reset()
+        fresh = ht.SlamSession(CFG, device="cpu")
+        for sc in scans[:3]:
+            np.testing.assert_array_equal(sess.process_scan(sc),
+                                          fresh.process_scan(sc))
+        # the fresh session's maps are new memory: its own graph, the
+        # only capture since the last reset
+        captures += 1
+        assert graphs.totals()["captures"] == captures
+        graphs._CACHE.popitem()
+        assert _same(sess.state, fresh.state)
+    [stats] = graphs.stats()
+    assert stats.name == "slam_step_jit" and stats.replays == 4 + 3 * 3

@@ -53,7 +53,8 @@ def test_port_imports_no_jax():
     # the modules of the last slice are among them
     for mod in ("core/covariance.py", "core/debug.py", "core/collectives.py",
                 "query/raycast.py", "export/markers.py", "io/checkpoint.py",
-                "io/attitude.py", "parallel/sharded.py", "core/graphs.py"):
+                "io/attitude.py", "parallel/sharded.py", "core/graphs.py",
+                "save_geotiff.py"):
         assert os.path.join(PKG, mod) in files, mod
     for path in files:
         for mod in _imported_modules(path):
@@ -71,13 +72,19 @@ NOT_PORTED = {"match_hypotheses_mxu", "match_hypotheses_mxu_jit",
 
 def test_jax_only_names_are_the_documented_not_ported_list():
     """Every name of the JAX package's ``__all__`` is in the port's, the
-    compiled entry points included, except the documented list."""
+    compiled entry points included, except the documented list. The
+    compiled recoveries, like JAX's, live on their modules only."""
     import hector_slam_tpu as hs
+    from hector_slam_tpu_torch.parallel import batch, recovery
     assert set(hs.__all__) - set(ht.__all__) == NOT_PORTED
     for name in ("slam_step_jit", "run_log_jit", "match_hypotheses_jit",
                  "fleet_step_jit", "shared_fleet_step_jit",
                  "match_hypotheses_kernel_jit"):
         assert callable(getattr(ht, name)), name
+    assert callable(recovery.cascade_refine_jit)
+    assert callable(batch.residual_for_poses_jit)
+    assert "cascade_refine_jit" not in hs.__all__
+    assert "residual_for_poses_jit" not in hs.__all__
     assert all(hasattr(ht, name) for name in ht.__all__)
 
 
@@ -134,6 +141,12 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_card,
                                       np.zeros((1, 2), np.int32),
                                       np.ones((1, 2), np.int32))
     assert ht.load_state(ckpt, cfg, device="cpu").pose.device.type == "cpu"
+    from hector_slam_tpu_torch import save_geotiff
+    geo = ["--checkpoint", ckpt, "--out", str(tmp_path / "geo"), "--size",
+           "64", "--levels", "2"]
+    with pytest.raises(RuntimeError, match="cuda"):
+        save_geotiff.main(geo)
+    assert not os.path.exists(str(tmp_path / "geo.png"))
     with pytest.raises(RuntimeError, match="cuda"):
         probes.workloads("mm")
     with pytest.raises(RuntimeError, match="cuda"):

@@ -159,8 +159,51 @@ def test_session_reset_with_pose(log):
         assert len(s.trajectory.path()) == 0
         np.testing.assert_allclose(s.process_ranges(ranges[0]),
                                    [0.5, -0.5, 0.1])
-    # the port rebuilds its state on the session's device
+    # the port resets its state in place, on the session's device
     assert all(t.device == torch.device("cpu") for t in s.state.log_odds)
+
+
+def _state_leaves(state):
+    return [*state.log_odds, *state.quads, state.pose,
+            state.last_map_update_pose, state.covariance, state.step,
+            state.map_update_count]
+
+
+def test_reset_writes_a_fresh_state_into_the_same_tensors(log):
+    """``reset`` and ``reset_with_pose`` write ``init_state``'s values
+    into the session's own tensors (the step graph on the card is keyed
+    on the maps' memory): every leaf keeps its ``data_ptr`` and equals a
+    fresh state's, and the scans after a reset give what a fresh
+    session gives, bit for bit."""
+    _, ranges = log
+    cfg = ht.SlamConfig(map=ht.MapConfig(**MAP_KW), **CFG_KW)
+    laser = ht.LaserModel(**LASER_KW)
+    sess = ht.SlamSession(cfg, laser, device="cpu")
+    for r in ranges[:4]:
+        sess.process_ranges(r)
+    ptrs = [t.data_ptr() for t in _state_leaves(sess.state)]
+    fresh = ht.init_state(cfg, device="cpu")
+    for reset in (sess.reset, lambda: sess.reset_with_pose([0.2, 0.1, 0.3])):
+        reset()
+        assert [t.data_ptr() for t in _state_leaves(sess.state)] == ptrs
+        for got, want in zip(_state_leaves(sess.state), _state_leaves(fresh)):
+            assert torch.equal(got, want)
+        fresh_sess = ht.SlamSession(cfg, laser, device="cpu")
+        if sess._initial_pose is not None:
+            fresh_sess.set_initial_pose([0.2, 0.1, 0.3])
+        for r in ranges[:3]:
+            np.testing.assert_array_equal(sess.process_ranges(r),
+                                          fresh_sess.process_ranges(r))
+        for got, want in zip(_state_leaves(sess.state),
+                             _state_leaves(fresh_sess.state)):
+            assert torch.equal(got, want)
+        ptrs = [t.data_ptr() for t in _state_leaves(sess.state)]
+    # a state whose leaves share memory is replaced, not written through
+    st = sess.state
+    sess.state = st._replace(last_map_update_pose=st.pose)
+    sess.reset()
+    for got, want in zip(_state_leaves(sess.state), _state_leaves(fresh)):
+        assert torch.equal(got, want)
 
 
 def test_session_map_publication_gating(log):
