@@ -140,18 +140,27 @@ the main path through the entry points a user calls:
      over 65,536 rays of up to 1,024 cells and the scalar raycasts,
      service distances and normals of 64 rays (equal); save_state ->
      load_state round trips of the session state and of the 64-robot
-     shared fleet's final state (bit-equal); ms per call;
+     shared fleet's final state (bit-equal); ms per call; the two query
+     graphs (match_pyramid_debug_jit, sigma_point_covariance_jit):
+     first call (one capture each) and warm ms against their eager
+     functions in turns, bit-equal, no capture when warm;
  13. sharded — parallel/sharded.py on four gloo ranks sharing the card
      (a (robot 2, beam 2) mesh, spawned by run_ranks with a deadline):
      the 64-robot per-robot fleet for 6 steps (poses within 2e-4, gates
      equal, finest maps agreeing on more than 99.9% of cells against the
      unsharded fleet_step run here), the 64-robot shared fleet (bit-equal
      to shared_fleet_step) and shard_hypotheses at B = 4096 (within 1e-6
-     of match_hypotheses); then one NCCL rank running the per-robot fleet
-     (bit-equal); every rank's update is one paint_cells launch, counted
-     in the ranks: a rank paints on the steps where a gate of its robots
-     fired (a beam group's ranks take the same gates), and steps 1-5, the
-     timed ones, hold gated updates of both fleets;
+     of match_hypotheses), each rank's update one paint_cells launch on
+     the steps where a gate of its group fired (gloo runs the eager
+     steps); then one NCCL rank running the compiled sharded steps (CUDA
+     graphs with the all-reduces inside) of both fleets in turns with
+     the eager sharded steps, and shard_hypotheses: bit-equal to the
+     eager sharded run and to the unsharded run of fleet_step_jit,
+     shared_fleet_step_jit and match_hypotheses_jit; one capture, then
+     none, 0 stream syncs in a replay, one paint_cells launch a rank and
+     step, pool bytes, robot-scans/s in turns; launches are counted in
+     the ranks, and steps 1-5, the timed ones, hold gated updates of
+     both fleets;
  14. the kernels line: per kernel, its launches on the main path (each
      path, the probes included, is driven with the counts set to 0 just
      before it and read just after), its largest error against the plain
@@ -223,6 +232,8 @@ NORMAL_ABS = 1e-6
 SHARDED_RANKS, SHARDED_ROBOT_AXIS, SHARDED_STEPS = 4, 2, 6
 SHARDED_DEADLINE_S = 300.0   # each start of ranks; killed past it
 SHARDED_POSE_M, SHARDED_MAP_AGREE, SHARDED_HYP_M = 2e-4, 0.999, 1e-6
+# the NCCL rank's fleets: the compiled sharded step, then the eager one
+SHARDED_TURNS = ("step", "eager", "eager", "step")
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 non-tensor FLOP/s
 # and dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -1141,23 +1152,10 @@ def phase_batched(dev, kernels):
 
 def fleet_ranges():
     """Ranges f32[T, R, 1081] of FLEET_ROBOTS robots, each on its own
-    corridor trajectory (start 0-6.75 m along the corridor, 0.05-0.12 m
-    per scan, its own noise seed), and each robot's true poses
-    f32[T, R, 3]."""
-    import hector_slam_tpu_torch as ht
-    from hector_slam_tpu_torch.io.simulator import (World, corridor_trajectory,
-                                                    simulate_trajectory)
-    world = World.corridor(length=18.0, width=3.0)
-    ranges, truth = [], []
-    for r in range(FLEET_ROBOTS):
-        advance = 0.05 + 0.07 * ((r * 37) % FLEET_ROBOTS) / (FLEET_ROBOTS - 1)
-        poses = corridor_trajectory(FLEET_STEPS, advance=advance, weave=0.03)
-        poses[:, 0] += 0.45 * (r % 16)
-        truth.append(poses)
-        ranges.append(simulate_trajectory(world, poses, ht.LaserModel(),
-                                          range_noise_std=0.005,
-                                          seed=100 + r))
-    return np.stack(ranges, 1), np.stack(truth, 1)
+    corridor trajectory, and each robot's true poses f32[T, R, 3]
+    (``tools/torch_sharded_ranks.corridor_fleet``)."""
+    from tools.torch_sharded_ranks import corridor_fleet
+    return corridor_fleet(FLEET_STEPS, FLEET_ROBOTS)
 
 
 def relative_pose(start, pose):
@@ -1861,7 +1859,62 @@ def phase_queries(dev, kernels, shared_state):
                 and back.pose.device.type == dev.type,
                 save_ms=save_ms, load_ms=load_ms,
                 bytes=os.path.getsize(path))
+    # the two query graphs (match_pyramid_debug_jit,
+    # sigma_point_covariance_jit): first calls, each the process's first
+    # of its graph (warm-up, capture, one replay), against the eager
+    # functions on the same inputs
+    from hector_slam_tpu_torch.core import graphs
+    captures = graphs.totals()["captures"]
+    cov_jit, cov_first_ms = timed_call(
+        lambda: cov_mod.sigma_point_covariance_jit(lo0, pm, scan))
+    dbg_jit, dbg_first_ms = timed_call(lambda: ht.match_pyramid_debug_jit(
+        state.log_odds, start, scan, cfg, quads=state.quads))
+    first_captures = graphs.totals()["captures"] - captures
     launches = read_counts(kernels)
+
+    def debug_eager():
+        return ht.match_pyramid_debug(state.log_odds, start, scan, cfg,
+                                      quads=state.quads)
+
+    def debug_graphed():
+        return ht.match_pyramid_debug_jit(state.log_odds, start, scan, cfg,
+                                          quads=state.quads)
+
+    def cov_eager():
+        return cov_mod.sigma_point_covariance(lo0, pm, scan)
+
+    def cov_graphed():
+        return cov_mod.sigma_point_covariance_jit(lo0, pm, scan)
+
+    graph_checks = {
+        "covariance_graph_bit_equal": bool(torch.equal(cov_jit, cov_eager())),
+        "debug_graph_bit_equal": tree_equal(dbg_jit, debug_eager())
+        and tree_equal(dbg_jit, (pose, hess, diag)),
+        "graph_captures": first_captures == 2}
+    captures = graphs.totals()["captures"]
+    query_graphs = {"first_call_ms": {"sigma_point_covariance_jit":
+                                      cov_first_ms,
+                                      "match_pyramid_debug_jit":
+                                      dbg_first_ms}}
+    for label, fn, reps in (
+            ("covariance eager", cov_eager, 20),
+            ("covariance graphed", cov_graphed, 20),
+            ("covariance graphed again", cov_graphed, 20),
+            ("covariance eager again", cov_eager, 20),
+            ("debug eager", debug_eager, 5),
+            ("debug graphed", debug_graphed, 5),
+            ("debug graphed again", debug_graphed, 5),
+            ("debug eager again", debug_eager, 5)):
+        query_graphs[label + " ms"] = cuda_ms(fn, reps)
+    graph_checks["graph_warm_no_capture"] = (
+        graphs.totals()["captures"] == captures)
+    graph_checks["graph_warm_bit_equal"] = bool(
+        torch.equal(cov_graphed(), cov_eager())) and tree_equal(
+        debug_graphed(), debug_eager())
+    query_graphs["pool_bytes"] = {
+        g.name: g.pool_bytes for g in graphs.stats()
+        if g.name in ("sigma_point_covariance_jit",
+                      "match_pyramid_debug_jit")}
     # per-call times after the checks (first uses above)
     times = dict(
         covariance_ms=cuda_ms(lambda: cov_mod.sigma_point_covariance(
@@ -1910,9 +1963,10 @@ def phase_queries(dev, kernels, shared_state):
         "round_trips": all(v["bit_equal"] and v["on_card"]
                            for v in round_trips.values()),
         "no_kernel": not any(launches.values()),
+        **graph_checks,
     }
     ok = all(checks.values())
-    emit("queries", ok=ok, checks=checks, **times,
+    emit("queries", ok=ok, checks=checks, **times, query_graphs=query_graphs,
          covariance_max_abs_err=float(np.abs(cov - cov_ref).max()),
          likelihood=lh, jax_likelihood=float(ref["likelihood"]),
          debug_pose_err_m=float(np.abs(pose.cpu().numpy()
@@ -1942,26 +1996,37 @@ def phase_sharded(dev, kernels, fleet_scans, shared_scans, starts,
     to JAX's bars (poses within SHARDED_POSE_M, gates equal, the finest
     maps agreeing on more than SHARDED_MAP_AGREE of cells), the shared
     fleet bit for bit (robots only), the hypotheses within
-    SHARDED_HYP_M. (b) One NCCL rank: the per-robot fleet again, its
-    collectives identities, bit-equal to the unsharded run. Every rank's
-    map update is one paint_cells launch, counted in the ranks; the steps
-    after the first (timed) hold gated updates of both fleets. Returns
-    the launches the ranks counted, summed over them, and the paint
-    launches of each run."""
+    SHARDED_HYP_M. A gloo group runs the eager steps: every rank's map
+    update is one paint_cells launch on the steps where a gate of its
+    group fired. (b) One NCCL rank: the compiled sharded steps (CUDA
+    graphs with the group's all-reduces inside) of both fleets, in turns
+    with the eager sharded steps (SHARDED_TURNS), and shard_hypotheses
+    (match_hypotheses_jit's graph) beside the eager matcher: each
+    bit-equal to the eager sharded run and to the unsharded run of the
+    ``*_jit`` entry points here; one capture in the first compiled turn
+    and none after, no stream sync in a replay, one paint_cells launch
+    a rank and step (and one in the capture's warm-up). The launches are
+    counted in the ranks; the steps after the first (timed) hold gated
+    updates of both fleets. Returns the launches the ranks counted,
+    summed over them, and the paint launches of each run."""
     import tempfile
 
     import hector_slam_tpu_torch as ht
+    from hector_slam_tpu_torch.core import graphs
     from hector_slam_tpu_torch.parallel.sharded import run_ranks
     from tools.torch_sharded_ranks import (fleet_job, hypotheses_job,
                                            run_jobs, shared_fleet_job,
-                                           stacked_scans)
+                                           stacked_scans, turn)
     cfg = ht.BENCH_CONFIG
     fleet_in = stacked_scans(fleet_scans)
     shared_in = dict(stacked_scans(shared_scans), start_poses=starts)
+    graphs.clear()
+    torch.cuda.empty_cache()
     wall = {}
+    names = ("fleet", "shared_fleet", "hypotheses", "nccl_fleet",
+             "nccl_shared", "nccl_hypotheses")
     with tempfile.TemporaryDirectory() as tmp:
-        out = {k: str(Path(tmp) / f"{k}.npz")
-               for k in ("fleet", "shared_fleet", "hypotheses", "nccl")}
+        out = {k: str(Path(tmp) / f"{k}.npz") for k in names}
         jobs = [(fleet_job, (cfg, dev.type, SHARDED_ROBOT_AXIS, fleet_in,
                              out["fleet"])),
                 (shared_fleet_job, (cfg, dev.type, SHARDED_ROBOT_AXIS,
@@ -1972,75 +2037,143 @@ def phase_sharded(dev, kernels, fleet_scans, shared_scans, starts,
         run_ranks(run_jobs, SHARDED_RANKS, "gloo", (jobs,),
                   deadline_s=SHARDED_DEADLINE_S)
         wall["gloo_s"] = time.perf_counter() - t0
+        jobs = [(fleet_job, (cfg, dev.type, 1, fleet_in, out["nccl_fleet"],
+                             SHARDED_TURNS)),
+                (shared_fleet_job, (cfg, dev.type, 1, shared_in,
+                                    out["nccl_shared"], SHARDED_TURNS)),
+                (hypotheses_job, (cfg, dev.type, 1, hyp_inputs,
+                                  out["nccl_hypotheses"], ("step", "eager")))]
         t0 = time.perf_counter()
-        run_ranks(fleet_job, 1, "nccl", (cfg, dev.type, 1, fleet_in,
-                                         out["nccl"]),
+        run_ranks(run_jobs, 1, "nccl", (jobs,),
                   deadline_s=SHARDED_DEADLINE_S)
         wall["nccl_s"] = time.perf_counter() - t0
         got = {k: dict(np.load(v)) for k, v in out.items()}
 
-    # the same runs unsharded, in this process
-    r = fleet_scans[0].mask.shape[0]
-    fleet = ht.init_fleet(cfg, r, device=dev)
-    fleet, fposes, fmetrics, fsec = run_steps(
-        lambda st, sc: ht.fleet_step(st, sc, cfg), fleet, fleet_scans)
-    fposes = torch.stack(fposes).cpu().numpy()
-    fgates = torch.stack([m.map_updated for m in fmetrics]).cpu().numpy()
-    flevels = [lo.cpu().numpy() for lo in fleet.log_odds]
-    del fleet
-    shared = ht.init_shared_fleet(cfg, shared_scans[0].mask.shape[0],
-                                  start_poses=starts, device=dev)
-    shared, sposes, smetrics, ssec = run_steps(
-        lambda st, sc: ht.shared_fleet_step(st, sc, cfg), shared,
-        shared_scans)
-    sposes = torch.stack(sposes).cpu().numpy()
-    sgates = torch.stack([m.map_updated for m in smetrics]).cpu().numpy()
-    strunc = torch.stack([m.truncated_free_cells
-                          for m in smetrics]).cpu().numpy()
-    hyp = ht.match_hypotheses(
-        [torch.from_numpy(lo).to(dev) for lo in hyp_inputs["levels"]],
-        torch.from_numpy(hyp_inputs["hypotheses"]).to(dev),
-        ht.scan_from_numpy(hyp_inputs["points"], hyp_inputs["origo"],
-                           hyp_inputs["mask"], device=dev), cfg)
-    hyp_poses = hyp.pose.cpu().numpy()
+    # the same runs unsharded, in this process: eager, then compiled
+    def unsharded(step, state, scans):
+        state, poses, metrics, sec = run_steps(step, state, scans)
+        return dict(
+            poses=torch.stack(poses).cpu().numpy(),
+            gates=torch.stack([m.map_updated for m in metrics]).cpu().numpy(),
+            truncated=torch.stack([m.truncated_free_cells
+                                   for m in metrics]).cpu().numpy(),
+            count=state.map_update_count.cpu().numpy(),
+            levels=[lo.cpu().numpy() for lo in state.log_odds], seconds=sec)
 
-    fl, sf, hy, nc = (got[k] for k in ("fleet", "shared_fleet",
-                                       "hypotheses", "nccl"))
+    r = fleet_scans[0].mask.shape[0]
+    rs = shared_scans[0].mask.shape[0]
+    fl_eager = unsharded(lambda st, sc: ht.fleet_step(st, sc, cfg),
+                         ht.init_fleet(cfg, r, device=dev), fleet_scans)
+    fl_jit = unsharded(lambda st, sc: ht.fleet_step_jit(st, sc, cfg),
+                       ht.init_fleet(cfg, r, device=dev), fleet_scans)
+    sh_eager = unsharded(lambda st, sc: ht.shared_fleet_step(st, sc, cfg),
+                         ht.init_shared_fleet(cfg, rs, start_poses=starts,
+                                              device=dev), shared_scans)
+    sh_jit = unsharded(lambda st, sc: ht.shared_fleet_step_jit(st, sc, cfg),
+                       ht.init_shared_fleet(cfg, rs, start_poses=starts,
+                                            device=dev), shared_scans)
+    hyp_args = ([torch.from_numpy(lo).to(dev) for lo in hyp_inputs["levels"]],
+                torch.from_numpy(hyp_inputs["hypotheses"]).to(dev),
+                ht.scan_from_numpy(hyp_inputs["points"], hyp_inputs["origo"],
+                                   hyp_inputs["mask"], device=dev), cfg)
+    hyp_poses = ht.match_hypotheses(*hyp_args).pose.cpu().numpy()
+    hyp_jit = ht.match_hypotheses_jit(*hyp_args).pose.cpu().numpy()
+    graphs.clear()
+    torch.cuda.empty_cache()
+    fposes, fgates = fl_eager["poses"], fl_eager["gates"]
+    flevels = fl_eager["levels"]
+    sposes, sgates = sh_eager["poses"], sh_eager["gates"]
+
+    fl, sf, hy = (got[k] for k in ("fleet", "shared_fleet", "hypotheses"))
+    nf, ns, nh = (got[k] for k in ("nccl_fleet", "nccl_shared",
+                                   "nccl_hypotheses"))
     agree = [float(np.mean(fl[f"lo_{k}"] == flevels[k]))
              for k in range(cfg.map.levels)]
     timed = SHARDED_STEPS - 1
-    launches = {name: sum(int(g[f"launches_{name}"]) for g in got.values()
-                          if f"launches_{name}" in g) for name in kernels}
-    paints = {k: int(g["launches_paint_cells"]) for k, g in got.items()}
-    # a rank paints once per step where a gate of its robots fired: a
-    # fleet row's beam ranks when one of the row's robots gated, every
-    # shared-fleet rank when any robot gated; shard_hypotheses paints
-    # nothing
+    turns = range(len(SHARDED_TURNS))
+    compiled = [i for i in turns if SHARDED_TURNS[i] == "step"]
+
+    def launches_of(g, name):
+        return sum(int(turn(g, i).get(f"launches_{name}", 0))
+                   for i in range(len(g["routes"])))
+
+    launches = {name: sum(launches_of(g, name) for g in got.values())
+                for name in kernels}
+    paints = {k: launches_of(g, "paint_cells") for k, g in got.items()}
+    # a gloo rank paints once per step where a gate of its robots fired:
+    # a fleet row's beam ranks when one of the row's robots gated, every
+    # shared-fleet rank when any robot gated; the NCCL rank's compiled
+    # turns once a step and once in the capture's warm-up, its eager
+    # turns once per gated step; the hypotheses paint nothing
     beam = SHARDED_RANKS // SHARDED_ROBOT_AXIS
     rows = fgates.reshape(SHARDED_STEPS, SHARDED_ROBOT_AXIS, -1).any(-1)
+
+    def nccl_paints(gates):
+        return sum(SHARDED_STEPS + (i == compiled[0])
+                   if SHARDED_TURNS[i] == "step" else int(gates.any(1).sum())
+                   for i in turns)
+
     expected = {"fleet": beam * int(rows.sum()),
                 "shared_fleet": SHARDED_RANKS * int(sgates.any(1).sum()),
-                "hypotheses": 0, "nccl": int(fgates.any(1).sum())}
+                "hypotheses": 0, "nccl_fleet": nccl_paints(fgates),
+                "nccl_shared": nccl_paints(sgates), "nccl_hypotheses": 0}
+
+    def levels_of(run):
+        return run["levels"] if "levels" in run else [
+            run[f"lo_{k}"] for k in range(cfg.map.levels)]
+
+    def bit_equal(a, b):
+        return all(np.array_equal(a[k], b[k])
+                   for k in ("poses", "gates", "truncated", "count")) and all(
+            np.array_equal(x, y) for x, y in zip(levels_of(a), levels_of(b)))
+
+    def rates(g, robots):
+        return [timed * robots / float(turn(g, i)["seconds"]) for i in turns]
+
+    nccl = {}
+    for name, g, eager, jit in (("fleet", nf, fl_eager, fl_jit),
+                                ("shared", ns, sh_eager, sh_jit)):
+        nccl[name] = dict(
+            bit_equal_eager_sharded=all(bit_equal(turn(g, i), turn(g, 1))
+                                        for i in turns),
+            bit_equal_unsharded=bit_equal(g, eager),
+            bit_equal_unsharded_jit=bit_equal(g, jit),
+            captures=[int(turn(g, i)["captures"]) for i in turns],
+            syncs_last_step=[int(turn(g, i)["syncs"]) for i in turns],
+            pool_bytes=int(g["pool_bytes"]),
+            paint_launches=[int(turn(g, i)["launches_paint_cells"])
+                            for i in turns],
+            paint_launches_per_rank_step=int(turn(g, compiled[-1])[
+                "launches_paint_cells"]) / SHARDED_STEPS,
+            robot_scans_per_s=dict(zip(
+                [f"{i} {SHARDED_TURNS[i]}" for i in turns],
+                rates(g, fposes.shape[1] if name == "fleet"
+                      else sposes.shape[1]))))
     checks = {
         "fleet_poses": float(np.abs(fl["poses"] - fposes).max())
         <= SHARDED_POSE_M,
         "fleet_gates": bool(np.array_equal(fl["gates"], fgates)),
         "fleet_maps": agree[0] > SHARDED_MAP_AGREE,
         "fleet_gated": bool(fgates[0].all()),
-        "shared_bit_equal": bool(
-            np.array_equal(sf["poses"], sposes)
-            and np.array_equal(sf["gates"], sgates)
-            and np.array_equal(sf["truncated"], strunc)
-            and int(sf["count"]) == int(shared.map_update_count)
-            and all(np.array_equal(sf[f"lo_{k}"], lo.cpu().numpy())
-                    for k, lo in enumerate(shared.log_odds))),
+        "shared_bit_equal": bit_equal(sf, sh_eager),
         "hypotheses": float(np.abs(hy["poses"] - hyp_poses).max())
         <= SHARDED_HYP_M,
-        "nccl_bit_equal": bool(
-            np.array_equal(nc["poses"], fposes)
-            and np.array_equal(nc["gates"], fgates)
-            and all(np.array_equal(nc[f"lo_{k}"], flevels[k])
-                    for k in range(cfg.map.levels))),
+        "unsharded_jit_bit_equal": bit_equal(fl_jit, fl_eager)
+        and bit_equal(sh_jit, sh_eager),
+        "nccl_bit_equal": all(v["bit_equal_eager_sharded"]
+                              and v["bit_equal_unsharded"]
+                              and v["bit_equal_unsharded_jit"]
+                              for v in nccl.values()),
+        "nccl_captures": all(v["captures"] == [
+            int(i == compiled[0]) for i in turns] for v in nccl.values())
+        and int(nh["captures"]) == 1 and int(nh["later_captures"]) == 0,
+        "nccl_no_sync_in_a_replay": all(
+            v["syncs_last_step"][i] == 0 for v in nccl.values()
+            for i in compiled) and int(nh["syncs"]) == 0,
+        "nccl_hypotheses": bool(
+            np.array_equal(nh["poses"], turn(nh, 1)["poses"])
+            and np.array_equal(nh["poses"], hyp_jit)
+            and np.array_equal(nh["poses"], hyp_poses)),
         "paint_launches": paints == expected
         and launches["interp_moments"] == 0,
         # the timed steps hold gated updates of both fleets
@@ -2052,26 +2185,33 @@ def phase_sharded(dev, kernels, fleet_scans, shared_scans, starts,
     emit("sharded", ok=ok, checks=checks, ranks=SHARDED_RANKS,
          mesh={"robot": SHARDED_ROBOT_AXIS,
                "beam": SHARDED_RANKS // SHARDED_ROBOT_AXIS},
-         backend="gloo, CUDA tensors, the ranks sharing one card; one NCCL "
-         "rank", steps=SHARDED_STEPS, timed_steps=timed,
+         backend="gloo, CUDA tensors, the ranks sharing one card (eager "
+         "steps); one NCCL rank (compiled steps, eager in turns)",
+         steps=SHARDED_STEPS, timed_steps=timed,
          fleet_robots=r, fleet_gates_per_step=fgates.sum(1).tolist(),
          fleet_pose_max_diff_m=float(np.abs(fl["poses"] - fposes).max()),
          fleet_map_agreement_by_level=agree,
-         fleet_truncated_equal=bool(np.array_equal(
-             fl["truncated"], torch.stack([m.truncated_free_cells
-                                           for m in fmetrics]).cpu().numpy())),
+         fleet_truncated_equal=bool(np.array_equal(fl["truncated"],
+                                                   fl_eager["truncated"])),
          shared_gates_per_step=sgates.sum(1).tolist(),
          hypotheses_max_diff=float(np.abs(hy["poses"] - hyp_poses).max()),
-         nccl_pose_max_diff_m=float(np.abs(nc["poses"] - fposes).max()),
          # rank 0's host seconds for the steps after the first; robot-scans
          # per second of four ranks sharing one card, not a multi-card rate
          sharded_fleet_robot_scans_per_s=timed * r / float(fl["seconds"]),
-         unsharded_fleet_robot_scans_per_s=timed * r / fsec,
-         sharded_shared_robot_scans_per_s=timed * sposes.shape[1]
-         / float(sf["seconds"]),
-         unsharded_shared_robot_scans_per_s=timed * sposes.shape[1] / ssec,
-         nccl_fleet_robot_scans_per_s=timed * r / float(nc["seconds"]),
+         unsharded_fleet_robot_scans_per_s=timed * r / fl_eager["seconds"],
+         unsharded_fleet_jit_robot_scans_per_s=timed * r / fl_jit["seconds"],
+         sharded_shared_robot_scans_per_s=timed * rs / float(sf["seconds"]),
+         unsharded_shared_robot_scans_per_s=timed * rs / sh_eager["seconds"],
+         unsharded_shared_jit_robot_scans_per_s=timed * rs
+         / sh_jit["seconds"],
          sharded_hypotheses_ms=float(hy["seconds"]) * 1e3,
+         nccl_turns=list(SHARDED_TURNS), nccl=nccl,
+         nccl_hypotheses=dict(
+             graphed_ms=float(nh["seconds"]) * 1e3,
+             eager_ms=float(turn(nh, 1)["seconds"]) * 1e3,
+             captures=int(nh["captures"]),
+             later_captures=int(nh["later_captures"]),
+             pool_bytes=int(nh["pool_bytes"]), syncs=int(nh["syncs"])),
          wall_s=wall, kernel_launches=launches, paint_launches_by_run=paints,
          expected_paint_launches=expected)
     if not ok:
@@ -2174,7 +2314,8 @@ def run_paths(dev):
     weights["sequential_graphed"] = (paths["session"]["paint_cells"]
                                      + graph_paints["sequential"])
     weights["sequential"] = paths["sequential_xla"]["paint_cells"]
-    weights["fleet"] += sharded_paints["nccl"]
+    weights["fleet"] += sharded_paints["nccl_fleet"]
+    weights["shared_fleet"] += sharded_paints["nccl_shared"]
     weights["sharded"] = sharded_paints["fleet"]
     weights["sharded_shared"] = sharded_paints["shared_fleet"]
     slam_rows = [r for r in paint_rows if r["path"]]

@@ -15,7 +15,7 @@ from .config import (BENCH_CONFIG, CITYFLYER_LOG_CONFIG, DEFAULT_CONFIG,
                      SINGLE_MAP_CONFIG, TUTORIAL_CONFIG, UGV_CONFIG,
                      MapConfig, MatchConfig, SlamConfig, UpdateConfig)
 from .convert import fleet_state_from_numpy, scan_from_numpy, state_from_numpy
-from .core.debug import match_pyramid_debug
+from .core.debug import match_pyramid_debug, match_pyramid_debug_jit
 from .core.mapping import update_pyramid
 from .core.matcher import match_level, match_pyramid
 from .core.slam import (init_state, run_log, run_log_jit, slam_step,
@@ -55,6 +55,7 @@ __all__ = [
     "MapConfig", "MatchConfig", "SlamConfig", "UpdateConfig",
     "fleet_state_from_numpy", "scan_from_numpy", "state_from_numpy",
     "update_pyramid", "match_level", "match_pyramid", "match_pyramid_debug",
+    "match_pyramid_debug_jit",
     "init_state", "run_log", "run_log_jit", "slam_step", "slam_step_jit",
     "GeotiffExporter", "write_geotiff",
     "arrow_marker", "covariance_ellipse", "pose_markers",

@@ -8,6 +8,10 @@ CUDA tensors (gloo also on CPU tensors). The reduced values are equal on
 every rank of the group: each element is reduced once and the result
 copied to every rank, so a decision taken from them (a gate, a GN step)
 is the same on every rank.
+
+An NCCL all-reduce is a kernel on the card's streams, so a CUDA graph
+can hold it (``captures_collectives``); gloo reduces a CUDA tensor in
+host memory, which no graph can capture.
 """
 
 from __future__ import annotations
@@ -16,6 +20,13 @@ from typing import List, Sequence
 
 import torch
 import torch.distributed as dist
+
+
+def captures_collectives(group) -> bool:
+    """Whether a CUDA graph can hold this group's collectives on CUDA
+    tensors: its backend for them is NCCL (``dist.get_backend``: "nccl",
+    or "cuda:nccl" in a per-device list)."""
+    return "nccl" in dist.get_backend(group)
 
 
 def psum(t: torch.Tensor, group) -> torch.Tensor:

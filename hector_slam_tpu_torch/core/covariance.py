@@ -5,6 +5,9 @@ Counterpart of ``hector_slam_tpu/core/covariance.py``. The reference's
 main path never calls these; they are part of the library surface. The 7
 sigma points are scored as one [7, N] batch of queries through
 ``interp_with_derivatives`` (the JAX package vmaps the same evaluation).
+``sigma_point_covariance_jit`` is the JAX package's jitted covariance
+(hector_slam_tpu/core/covariance.py:77): on the card a CUDA graph
+(core/graphs.py), the map held and the pose and scan copied.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..types import Scan
+from . import graphs
 from .grid import device_constant
 from .interp import beam_sum, interp_with_derivatives
 
@@ -67,6 +71,23 @@ def sigma_point_covariance(log_odds: torch.Tensor, pose_map: torch.Tensor,
     d = sigma - mean
     w = lh * inv_norm
     return (w[:, None, None] * (d[:, :, None] * d[:, None, :])).sum(0)
+
+
+def sigma_point_covariance_jit(log_odds: torch.Tensor,
+                               pose_map: torch.Tensor, scan: Scan,
+                               cell_model: str = "log_odds") -> torch.Tensor:
+    """``sigma_point_covariance`` compiled (static ``cell_model``): on the
+    card a CUDA graph captured once per (``cell_model``, shapes, the
+    map's memory) and replayed with no host round trip; the covariance
+    is a new tensor, bit-equal to the eager function's. On CPU tensors it
+    runs eagerly."""
+    if not graphs.on_card(pose_map):
+        return sigma_point_covariance(log_odds, pose_map, scan, cell_model)
+    return graphs.call(
+        "sigma_point_covariance_jit", (cell_model,), [log_odds],
+        [pose_map, *scan],
+        lambda maps, statics: sigma_point_covariance(
+            maps[0], statics[0], Scan(*statics[1:4]), cell_model))
 
 
 def interp_map_value(log_odds: torch.Tensor, coords: torch.Tensor,

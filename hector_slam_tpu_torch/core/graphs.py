@@ -26,6 +26,15 @@ that lives as long as the graph, so the pointers the kernels were
 launched with stay valid. A failed warm-up or capture raises: nothing
 falls back to the eager functions.
 
+Collectives: a body given an NCCL process group (the sharded steps,
+parallel/sharded.py) issues its all-reduces inside the capture, and
+every replay issues them again. The warm-up issues the same collectives
+on the same group first, which creates the communicator outside the
+capture. The capture is thread-local: its own thread may make no call
+that is unsafe during a capture, while other threads (NCCL's watchdog,
+which queries events) go on as before. Every rank must then replay the
+same graphs in the same order, as it would issue the eager collectives.
+
 Launch counts: a replay runs no Python, so the kernel wrappers'
 ``launches`` counters see the capture, not the replays. The capture's
 counts are taken back and added again at every replay, so the counters
@@ -137,7 +146,7 @@ def _capture(name, held, copied, body) -> Entry:
     stream = torch.cuda.current_stream(device)
     graph = torch.cuda.CUDAGraph()
     try:
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             outputs = body(held, statics, True)
     except Exception as err:
         # a capture that fails as it ends leaves its stream current

@@ -189,27 +189,31 @@ def fleet_step_sync_free(
     states: SlamState,
     scans: Scan,
     cfg: SlamConfig,
+    beam_axis=None,
 ) -> Tuple[SlamState, StepMetrics]:
     """``fleet_step`` with no host read, bit-equal to it: the update runs
     on every step with the ungated robots' beams masked, and
     ``torch.where`` keeps each ungated robot's levels (JAX's vmapped
     ``lax.cond`` is this select); the quads are packed from the chosen
-    levels on every step. The body of ``fleet_step_jit``."""
+    levels on every step. The body of ``fleet_step_jit`` and, with
+    ``beam_axis`` (as in ``fleet_step``), of the compiled sharded step
+    (parallel/sharded.make_fleet_step): every rank of the group then
+    issues the same collectives on every step, gated or not."""
     result = match_pyramid(states.log_odds, states.pose, scans, cfg,
-                           quads=states.quads)
+                           quads=states.quads, beam_axis=beam_axis)
     new_pose, hessian = result.pose, result.hessian
     gates = pose_difference_larger_than(
         new_pose, states.last_map_update_pose,
         cfg.map_update_distance_thresh, cfg.map_update_angle_thresh)
     updated, truncated = update_pyramid(states.log_odds, new_pose, scans,
-                                        cfg, gates=gates)
+                                        cfg, beam_axis, gates=gates)
     new_log_odds = tuple(
         torch.where(gates.reshape((-1,) + (1,) * (lo.dim() - 1)), u, lo)
         for u, lo in zip(updated, states.log_odds))
     return _fleet_result(states, scans, new_pose, hessian, gates,
                          new_log_odds,
                          quads_of(new_log_odds, cfg.update.cell_model),
-                         truncated)
+                         psum(truncated, beam_axis), beam_axis)
 
 
 def _fleet_result(states, scans, new_pose, hessian, gates, new_log_odds,

@@ -23,6 +23,24 @@ tensors, or for CUDA tensors of ranks that share a card. Nothing here
 picks a backend or switches from one to another; ``run_ranks`` starts
 ranks on the backend it is given and raises when that one is not
 available.
+
+The steps are compiled where the group allows it, as JAX compiles its
+``jax.jit(shard_map(...), donate_argnums=(0,))``: on an NCCL group with
+the blocks on the card, ``make_fleet_step`` and
+``make_shared_fleet_step`` replay a CUDA graph of the sync-free bodies
+(``fleet_step_sync_free``, ``shared_fleet_step_sync_free``; the update on
+every step, the gates selected on the card), the group's all-reduces
+captured inside it, one graph per (``cfg``, the mesh's shape, the group,
+shapes, the held maps), the blocks donated. Every rank issues the same
+collectives on every step and replays the same graph. A gloo group
+reduces a CUDA tensor through host memory, which a CUDA graph cannot
+capture, so gloo groups and CPU blocks run the eager steps: the map
+update, and its collectives, only on the steps where the group's gate
+fired. The group's backend decides (``captures_collectives``); a failed
+capture raises, nothing falls back to the eager step. Drop the graphs
+(``core.graphs.clear()``) before ``destroy_process_group``: a kept graph
+holds NCCL's resources for the collectives it captured, and with more
+than one rank the teardown waits for them (``run_ranks`` does so).
 """
 
 from __future__ import annotations
@@ -37,9 +55,12 @@ import torch
 import torch.distributed as dist
 
 from ..config import SlamConfig
+from ..core import graphs
+from ..core.collectives import captures_collectives
+from ..core.slam import compiled_step
 from ..types import Scan, SlamState
-from .batch import fleet_step, match_hypotheses
-from .shared_map import shared_fleet_step
+from .batch import fleet_step, fleet_step_sync_free, match_hypotheses_jit
+from .shared_map import shared_fleet_step_jit
 
 PG_TIMEOUT_S = 120   # a rank's collectives give up after this long
 
@@ -166,9 +187,22 @@ def make_fleet_step(mesh: Mesh, cfg: SlamConfig):
     rank's blocks (``shard_fleet_state``, ``shard_scan``) runs
     ``fleet_step`` over its robots, the normal equations and cell sets
     combined over its row's beam shards. Returns this rank's blocks of
-    the new states and metrics."""
+    the new states and metrics.
+
+    On an NCCL group with the blocks on the card the step is compiled
+    (the module docstring): ``fleet_step_sync_free`` replayed as a CUDA
+    graph with the beam group's all-reduces inside, the states DONATED
+    as in ``fleet_step_jit``. Otherwise it is the eager ``fleet_step``."""
+    group = mesh.beam_group
+
     def step(states: SlamState, scans: Scan):
-        return fleet_step(states, scans, cfg, beam_axis=mesh.beam_group)
+        if not (graphs.on_card(states.pose) and captures_collectives(group)):
+            return fleet_step(states, scans, cfg, beam_axis=group)
+        return compiled_step(
+            "sharded_fleet_step", (cfg, mesh.robot, mesh.beam, group),
+            states, scans,
+            lambda st, points, origo, mask: fleet_step_sync_free(
+                st, Scan(points, origo, mask), cfg, beam_axis=group))
     return step
 
 
@@ -196,12 +230,17 @@ def shard_shared_fleet_scan(scan: Scan, mesh: Mesh) -> Scan:
 
 def make_shared_fleet_step(mesh: Mesh, cfg: SlamConfig):
     """The sharded shared-map fleet step: ``step(state, scans)`` on this
-    rank's blocks runs ``shared_fleet_step`` over its robots against the
-    replicated pyramid, the cell sets OR-combined over the whole mesh,
+    rank's blocks runs the shared-map fleet step over its robots against
+    the replicated pyramid, the cell sets OR-combined over the whole mesh,
     so every rank's pyramid stays the same. Returns this rank's blocks of
-    the new state and metrics (the truncated count is the fleet's)."""
+    the new state and metrics (the truncated count is the fleet's).
+
+    ``shared_fleet_step_jit`` with the mesh's group as its robot axis: on
+    an NCCL group with the blocks on the card a CUDA graph with the
+    group's all-reduces inside, the state DONATED; otherwise the eager
+    ``shared_fleet_step``."""
     def step(state: SlamState, scans: Scan):
-        return shared_fleet_step(state, scans, cfg, robot_axis=mesh.group)
+        return shared_fleet_step_jit(state, scans, cfg, robot_axis=mesh.group)
     return step
 
 
@@ -209,13 +248,14 @@ def shard_hypotheses(mesh: Mesh, cfg: SlamConfig):
     """Hypothesis-parallel matching: ``fn(pyramid, begin_poses[H, 3],
     scan)`` matches this rank's block of the H axis (split over the whole
     mesh; H a multiple of its size) with the torch-op batched matcher
-    (``batch.match_hypotheses``); map and scan are replicated, nothing is
-    communicated. Returns this rank's block of the MatchResult
+    compiled (``batch.match_hypotheses_jit``: a CUDA graph on the card,
+    on any backend, since nothing is communicated); map and scan are
+    replicated. Returns this rank's block of the MatchResult
     (``gather_rows(..., "mesh")`` collects them)."""
     def fn(pyramid, begin_poses: torch.Tensor, scan: Scan):
-        return match_hypotheses(pyramid,
-                                _block(begin_poses, mesh.rank, mesh.size),
-                                scan, cfg)
+        return match_hypotheses_jit(pyramid,
+                                    _block(begin_poses, mesh.rank, mesh.size),
+                                    scan, cfg)
     return fn
 
 
@@ -283,6 +323,9 @@ def _rank_main(fn, rank, world_size, backend, port, args):
     try:
         fn(rank, world_size, *args)
     finally:
+        # a kept graph holds NCCL's resources for the collectives it
+        # captured, and the communicators' teardown waits for them
+        graphs.clear()
         dist.destroy_process_group()
 
 

@@ -20,7 +20,8 @@ The shared pyramid and its quad cache change once per step iff some gate
 fired, and a step where none fired skips the rasterization (one host
 sync per step decides). ``shared_fleet_step_jit`` decides on the device
 instead (JAX's ``jnp.where(any_gate, updated, lo)``) and replays a CUDA
-graph on the card (core/graphs.py).
+graph on the card (core/graphs.py), with an NCCL group's all-reduces
+inside it.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import torch
 
 from ..config import SlamConfig
 from ..core import graphs
-from ..core.collectives import por, psum
+from ..core.collectives import captures_collectives, por, psum
 from ..core.grid import pose_difference_larger_than
 from ..core.mapping import update_pyramid
 from ..core.matcher import match_pyramid
@@ -146,25 +147,32 @@ def shared_fleet_step_sync_free(
     scans: Scan,
     cfg: SlamConfig,
     map_without_matching: bool = False,
+    robot_axis=None,
 ) -> Tuple[SlamState, StepMetrics]:
     """``shared_fleet_step`` with no host read, bit-equal to it: the
     combined update runs on every step and the device keeps the old
     levels where no gate fired (JAX's ``jnp.where(any_gate, updated,
     lo)``, hector_slam_tpu/parallel/shared_map.py:138); the quads are
     packed from the chosen levels and the update count is added on the
-    device. The body of ``shared_fleet_step_jit``."""
+    device. ``robot_axis`` as in ``shared_fleet_step``: the any-gate bit
+    is the group's OR, kept on the device, and the cell sets' OR and the
+    truncated count's sum run on every step, so every rank of the group
+    issues the same collectives whether a gate fired or not. The body of
+    ``shared_fleet_step_jit`` and of the compiled sharded step
+    (parallel/sharded.make_shared_fleet_step)."""
     new_poses, hessians, gates = _match_and_gate(state, scans, cfg,
                                                  map_without_matching)
-    any_gate = gates.any()
+    [any_gate] = por([gates.any()], robot_axis)
     updated, truncated = update_pyramid(state.log_odds, new_poses, scans,
-                                        cfg, gates=gates)
+                                        cfg, robot_axis, gates=gates)
     new_log_odds = tuple(torch.where(any_gate, u, lo)
                          for u, lo in zip(updated, state.log_odds))
+    truncated_total = psum(truncated.sum().to(torch.int32), robot_axis)
     return _result(state, scans, new_poses, hessians, gates,
                    state.map_update_count + any_gate.to(torch.int32),
                    new_log_odds,
                    quads_of(new_log_odds, cfg.update.cell_model),
-                   torch.where(any_gate, truncated.sum().to(torch.int32), 0))
+                   torch.where(any_gate, truncated_total, 0))
 
 
 def shared_fleet_step_jit(
@@ -177,19 +185,28 @@ def shared_fleet_step_jit(
     """``shared_fleet_step`` compiled (the JAX package's
     ``shared_fleet_step_jit``, hector_slam_tpu/parallel/shared_map.py:
     190): ``shared_fleet_step_sync_free``, on the card a CUDA graph
-    captured once per (``cfg``, ``map_without_matching``, shapes, the
-    shared map's memory) and replayed with no host round trip. The state
-    is DONATED, as JAX's is (see ``slam_step_jit``); the metrics are new
-    tensors. With ``robot_axis`` (a process group) the step runs eagerly:
-    graphs of collectives are not captured. On CPU tensors the body runs
-    eagerly."""
-    if robot_axis is not None:
+    captured once per (``cfg``, ``map_without_matching``, the group,
+    shapes, the shared map's memory) and replayed with no host round
+    trip. The state is DONATED, as JAX's is (see ``slam_step_jit``); the
+    metrics are new tensors. On CPU tensors the body runs eagerly.
+
+    With ``robot_axis`` (a process group) the graph holds the group's
+    all-reduces: an NCCL group's collectives are kernels on the card's
+    streams, so they are captured and every replay issues them on every
+    rank. A gloo group moves a CUDA tensor through host memory, which no
+    CUDA graph can capture, so there the step runs eagerly
+    (``shared_fleet_step``: the update only where the group's gate
+    fired); the group's backend decides
+    (core/collectives.captures_collectives)."""
+    if robot_axis is not None and not captures_collectives(robot_axis):
         return shared_fleet_step(state, scans, cfg, map_without_matching,
                                  robot_axis)
     if not graphs.on_card(state.pose):
         return shared_fleet_step_sync_free(state, scans, cfg,
-                                           map_without_matching)
+                                           map_without_matching, robot_axis)
     return compiled_step(
-        "shared_fleet_step_jit", (cfg, map_without_matching), state, scans,
+        "shared_fleet_step_jit", (cfg, map_without_matching, robot_axis),
+        state, scans,
         lambda st, points, origo, mask: shared_fleet_step_sync_free(
-            st, Scan(points, origo, mask), cfg, map_without_matching))
+            st, Scan(points, origo, mask), cfg, map_without_matching,
+            robot_axis))

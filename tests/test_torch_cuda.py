@@ -1066,3 +1066,94 @@ def test_save_geotiff_cli_on_card(cuda_device, tmp_path):
         for ext in (".png", ".tfw"):
             with open(card + ext, "rb") as a, open(cpu + ext, "rb") as b:
                 assert a.read() == b.read(), (src, ext)
+
+
+# ---- the sharded steps compiled: NCCL all-reduces inside CUDA graphs -----
+
+
+def _rank_jobs():
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if repo not in sys.path:
+        sys.path.insert(0, repo)   # the ranks import tools/ by name
+    import tools.torch_sharded_ranks as jobs
+    return jobs
+
+
+@pytest.mark.cuda
+def test_sharded_steps_compiled_on_one_nccl_rank_on_card(cuda_device,
+                                                         tmp_path):
+    """One NCCL rank (a (1, 1) mesh, its collectives identities, issued
+    all the same): make_fleet_step, make_shared_fleet_step and
+    shard_hypotheses capture their graphs once, with the all-reduces
+    inside, and replay them with no capture and no stream sync, bit-equal
+    to the eager sharded steps in the turns between and to the unsharded
+    compiled steps; one paint launch a step, and one in the warm-up."""
+    jobs = _rank_jobs()
+    from hector_slam_tpu_torch.parallel.sharded import run_ranks
+    cfg, r, steps = ht.BENCH_CONFIG, 8, 4
+    fleet_in = jobs._job_inputs(cfg, jobs.corridor_fleet(steps, r)[0])
+    ref = np.load(jobs.SHARED_REFERENCE)
+    shared_in = dict(jobs._job_inputs(cfg, ref["ranges"][:steps, :r]),
+                     start_poses=ref["start_poses"][:r])
+    state = ht.init_state(cfg, device=cuda_device)
+    state, _ = ht.slam_step(state, ht.scan_from_numpy(
+        fleet_in["points"][0, 0], fleet_in["origo"][0, 0],
+        fleet_in["mask"][0, 0], device=cuda_device), cfg)
+    hyp_in = dict(levels=[lo.cpu().numpy() for lo in state.log_odds],
+                  hypotheses=np.random.default_rng(0).normal(
+                      0, 0.05, (256, 3)).astype(np.float32),
+                  **{k: v[1, 0] for k, v in fleet_in.items()})
+    routes = ("step", "eager", "step")
+    paths = {k: str(tmp_path / f"{k}.npz") for k in ("f", "s", "h")}
+    run_ranks(jobs.run_jobs, 1, "nccl", ([
+        (jobs.fleet_job, (cfg, "cuda", 1, fleet_in, paths["f"], routes)),
+        (jobs.shared_fleet_job, (cfg, "cuda", 1, shared_in, paths["s"],
+                                 routes)),
+        (jobs.hypotheses_job, (cfg, "cuda", 1, hyp_in, paths["h"],
+                               ("step", "eager")))],), deadline_s=300.0)
+    fleet, shared, hyp = (dict(np.load(p)) for p in paths.values())
+    # the unsharded compiled steps in this process
+    f = ht.init_fleet(cfg, r, device=cuda_device)
+    s = ht.init_shared_fleet(cfg, r, start_poses=shared_in["start_poses"],
+                             device=cuda_device)
+    for t in range(steps):
+        f, _ = ht.fleet_step_jit(f, ht.scan_from_numpy(
+            fleet_in["points"][t], fleet_in["origo"][t], fleet_in["mask"][t],
+            device=cuda_device), cfg)
+        s, _ = ht.shared_fleet_step_jit(s, ht.scan_from_numpy(
+            shared_in["points"][t], shared_in["origo"][t],
+            shared_in["mask"][t], device=cuda_device), cfg)
+    for got, want in ((fleet, f), (shared, s)):
+        for i in range(3):
+            t = jobs.turn(got, i)
+            for k in ("poses", "gates", "truncated", "num_valid", "count",
+                      "lo_0", "lo_1", "lo_2"):
+                np.testing.assert_array_equal(t[k], jobs.turn(got, 1)[k],
+                                              err_msg=k)
+            assert t["captures"] == (1 if i == 0 else 0)
+            assert t["syncs"] == 0 or routes[i] == "eager"
+        np.testing.assert_array_equal(got["poses"][-1],
+                                      want.pose.cpu().numpy())
+        for k, lo in enumerate(want.log_odds):
+            np.testing.assert_array_equal(got[f"lo_{k}"], lo.cpu().numpy())
+        assert int(got["launches_paint_cells"]) == steps + 1
+        assert int(got["t2_launches_paint_cells"]) == steps
+        assert int(got["pool_bytes"]) > 0
+    assert int(hyp["captures"]) == 1 and int(hyp["later_captures"]) == 0
+    assert int(hyp["syncs"]) == 0
+    np.testing.assert_array_equal(hyp["poses"], hyp["t1_poses"])
+    np.testing.assert_array_equal(hyp["hessians"], hyp["t1_hessians"])
+
+
+@pytest.mark.cuda
+def test_sharded_steps_compiled_on_four_cards(cuda_device):
+    """With four cards (skipped below): the 64-robot per-robot fleet on a
+    (robot 4, beam 1) and a (2, 2) mesh, the 64-robot shared fleet over
+    four ranks and shard_hypotheses at B = 4096 on BENCH_CONFIG, all
+    through the compiled steps, one NCCL rank a card, held to the
+    unsharded runs (tools/torch_sharded_ranks.py four_cards)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"needs four cards, {torch.cuda.device_count()} here")
+    result = _rank_jobs().four_cards()
+    assert result["ok"], result["checks"]

@@ -63,11 +63,11 @@ def test_port_imports_no_jax():
 
 
 # the JAX names the port does not have, each with its reason in ROADMAP.md
-# ("Not ported"): the TPU routes (Pallas kernel, MXU one-hot matcher), the
-# jitted debug matcher and the JAX-array occupancy grid
+# ("Not ported"): the TPU routes (Pallas kernel, MXU one-hot matcher) and
+# the JAX-array occupancy grid
 NOT_PORTED = {"match_hypotheses_mxu", "match_hypotheses_mxu_jit",
               "match_hypotheses_pallas", "match_hypotheses_pallas_jit",
-              "match_pyramid_debug_jit", "to_occupancy_grid_jax"}
+              "to_occupancy_grid_jax"}
 
 
 def test_jax_only_names_are_the_documented_not_ported_list():
@@ -75,16 +75,25 @@ def test_jax_only_names_are_the_documented_not_ported_list():
     compiled entry points included, except the documented list. The
     compiled recoveries, like JAX's, live on their modules only."""
     import hector_slam_tpu as hs
-    from hector_slam_tpu_torch.parallel import batch, recovery
+    from hector_slam_tpu.core import covariance as jcov
+    from hector_slam_tpu_torch.core import covariance
+    from hector_slam_tpu_torch.parallel import batch, recovery, sharded
     assert set(hs.__all__) - set(ht.__all__) == NOT_PORTED
     for name in ("slam_step_jit", "run_log_jit", "match_hypotheses_jit",
                  "fleet_step_jit", "shared_fleet_step_jit",
-                 "match_hypotheses_kernel_jit"):
+                 "match_hypotheses_kernel_jit", "match_pyramid_debug_jit"):
         assert callable(getattr(ht, name)), name
     assert callable(recovery.cascade_refine_jit)
     assert callable(batch.residual_for_poses_jit)
     assert "cascade_refine_jit" not in hs.__all__
     assert "residual_for_poses_jit" not in hs.__all__
+    # the covariance's compiled name lives on its module, as JAX's does
+    assert callable(covariance.sigma_point_covariance_jit)
+    assert callable(jcov.sigma_point_covariance_jit)
+    assert "sigma_point_covariance_jit" not in hs.__all__ + ht.__all__
+    for name in ("make_fleet_step", "make_shared_fleet_step",
+                 "shard_hypotheses"):
+        assert callable(getattr(sharded, name)), name
     assert all(hasattr(ht, name) for name in ht.__all__)
 
 
