@@ -59,11 +59,29 @@ the main path through the entry points a user calls:
      run-once saver (python -m hector_slam_tpu_torch.save_geotiff) on
      the card from a checkpoint of A, its files byte-equal to the CPU's;
      three reset() calls, each followed by a scan, with no capture and no
-     new reserved device memory;
+     new reserved device memory; then the "mxu" kidnap, on the path: a
+     session holding JAX's state after the replay (the JAX checkpoint
+     in tests/fixtures/queries_jax_reference.npz), kidnapped alike and
+     recovered by relocalize(method="mxu") at n = 256 and 1024 through
+     match_hypotheses_mxu_jit (one capture, 14 moments launches a
+     replay): refine batches, fast-path fraction and overflowed steps
+     equal to JAX's (tests/fixtures/mxu_jax_reference.npz, written by
+     tools/make_torch_mxu_reference.py), acceptance equal and winners
+     within 5 mm and 0.005 rad; each compiled call bit-equal to its
+     eager function; first-call and warm ms;
   6. batched matching — the bench.py workload: a map built with known
      poses, 4096 hypotheses (sigma 0.05) matched through
      match_hypotheses_kernel (14 kernel launches per call), a
      256-hypothesis subset held against the plain batched matcher;
+     then mxu: the same workload through match_hypotheses_mxu_jit, the
+     theta-bucketed patch matcher (bench.py's bucket count): its first
+     call and one replay on the path (14 moments launches each, 14 in
+     the capture's warm-up), the replay bit-equal to the eager function,
+     one capture then none, no stream sync in a replay, poses against
+     match_hypotheses_kernel_jit's (p90 < 2e-3, p99 < 5e-2), the diag,
+     ms per call graphed and eager and the kernel route's in turns (CUDA
+     events, host-fed), the graph's pool and first-call peak memory,
+     beside the card's name and power limit;
   7. fleet — fleet_step with 64 robots, a BENCH_CONFIG pyramid each, every
      robot on its own simulated corridor trajectory, 25 steps: robots 0,
      21, 42 and 63 replayed alone through slam_step must agree bit for bit
@@ -217,7 +235,20 @@ RECOVERY_ROUTES = {
     "match_hypotheses_kernel_jit": ("parallel.kernel_match",
                                     "match_hypotheses_kernel"),
     "match_hypotheses_jit": ("parallel.batch", "match_hypotheses"),
+    "match_hypotheses_mxu_jit": ("parallel.onehot_match",
+                                 "match_hypotheses_mxu"),
     "residual_for_poses_jit": ("parallel.batch", "residual_for_poses")}
+# the "mxu" kidnap: JAX's state after the corridor replay (QUERIES_REF)
+# kidnapped by KIDNAP, relocalize(method="mxu") at these sizes, held to
+# tests/fixtures/mxu_jax_reference.npz (tools/make_torch_mxu_reference.py)
+MXU_REF = ROOT / "tests" / "fixtures" / "mxu_jax_reference.npz"
+MXU_SIZES = (256, 1024)
+# phase mxu: the patch matcher against the moments kernel's matcher on
+# bench.py's workload, pose-difference quantiles as phase batched holds
+# the kernel route to the plain matcher (non-converged GN iterates
+# amplify a one-ulp cell flip, so no max bar)
+MXU_P90_M, MXU_P99_M = 2e-3, 5e-2
+MXU_REPS = 10
 # the queries phase's reference (tools/make_torch_queries_reference.py)
 QUERIES_REF = ROOT / "tests" / "fixtures" / "queries_jax_reference.npz"
 QUERY_RAY_CELLS = 1024     # distance_to_obstacle_batch's max_cells
@@ -375,11 +406,16 @@ def kernel_bound_ms(quad, shape, poses_map, points, mask, used):
     return bytes_ / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
 
 
-def phase_device():
-    smi = subprocess.run(
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reads them now."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
+
+
+def phase_device():
+    smi = card_line()
     emit("device", kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
@@ -908,6 +944,10 @@ def phase_session(kernels, run_log_poses):
             captures=graphs.totals()["captures"] - reset_from[0],
             reserved_bytes=torch.cuda.memory_reserved() - reset_from[1]))
 
+    pool_bytes_total = sum(g.pool_bytes for g in graphs.stats())
+    mxu = phase_session_mxu(kernels, laser)
+    launches = {k: n + mxu["launches"][k] for k, n in launches.items()}
+
     def delta(i, name):
         return marks[i + 1][name] - marks[i][name]
 
@@ -994,6 +1034,7 @@ def phase_session(kernels, run_log_poses):
         == 6,
         "finite": bool(np.isfinite(poses_a).all()
                        and np.isfinite(poses_b).all()),
+        **mxu["checks"],
     }
     ok = all(checks.values())
     emit("session", ok=ok, checks=checks, scans=len(ranges),
@@ -1019,7 +1060,7 @@ def phase_session(kernels, run_log_poses):
                  "session_a", "session_b", "relocalize_quad",
                  "relocalize_pallas", "track_after", "relocalize_global"))},
          recovery_graphs=recovery_graphs,
-         graph_pool_bytes_total=sum(g.pool_bytes for g in graphs.stats()),
+         graph_pool_bytes_total=pool_bytes_total, mxu_kidnap=mxu["report"],
          warm_graph_counts=warm_graphs, graphed_equal_eager=graph_equal,
          resets=resets, save_geotiff_cli=dict(
              returncode=cli.returncode, files_equal_cpu=cli_equal,
@@ -1043,6 +1084,195 @@ def phase_session(kernels, run_log_poses):
                         "relocalize_global"))})
     if not ok:
         raise SystemExit("the session failed its checks: " + ", ".join(
+            k for k, v in checks.items() if not v))
+    return launches
+
+
+def phase_session_mxu(kernels, laser):
+    """The "mxu" kidnap of phase session, on its path: a session holding
+    JAX's state after the corridor replay (QUERIES_REF), kidnapped by
+    KIDNAP, recovers by relocalize(method="mxu") at each of MXU_SIZES
+    through match_hypotheses_mxu_jit (14 moments launches a replay: the
+    full path runs on every GN step and is selected on the device),
+    held to JAX's telemetry, refine batch, acceptance and winner
+    (MXU_REF). Off the path: each again with the compiled call checked
+    against its eager function, then warm and timed. Returns the
+    path's launches, the checks and the report."""
+    import hector_slam_tpu_torch as ht
+    from hector_slam_tpu_torch.core import graphs
+    ref = np.load(MXU_REF)
+    cfg = ht.BENCH_CONFIG
+    state = ht.load_state(str(QUERIES_REF), cfg)
+    with np.load(QUERIES_REF) as z:
+        scan = ht.Scan(*(torch.from_numpy(z[k]).to(state.pose.device)
+                         for k in ("scan_points", "scan_origo",
+                                   "scan_mask")))
+    kidnapped = state._replace(pose=state.pose + torch.from_numpy(
+        KIDNAP).to(state.pose.device))
+    sess = ht.SlamSession(cfg, laser)
+    refine = sess._refine_and_accept
+    refined = {}
+
+    def spy(hyp, *args, **kw):
+        refined[len(refined)] = hyp.cpu().numpy()
+        return refine(hyp, *args, **kw)
+
+    sess._refine_and_accept = spy
+    kw = {k: v for k, v in RELOCALIZE.items() if k != "n_hypotheses"}
+
+    def recover(n):
+        sess.state = kidnapped
+        return sess.relocalize(scan=scan, n_hypotheses=n, method="mxu", **kw)
+
+    reset_counts(kernels)
+    before = graphs.totals()
+    first = {n: timed_call(lambda: recover(n)) for n in MXU_SIZES}
+    launches = read_counts(kernels)
+    after = graphs.totals()
+    # the most recently used graph of that name (stats are oldest first)
+    entry = [g for g in graphs.stats()
+             if g.name == "match_hypotheses_mxu_jit"][-1]
+    graph_equal = {}
+    with checked_recovery_routes(graph_equal):
+        again = {n: recover(n) for n in MXU_SIZES}
+    warm = {n: [timed_call(lambda: recover(n))[1] for _ in range(3)]
+            for n in MXU_SIZES}
+    captures = after["captures"] - before["captures"]
+    replays = after["replays"] - before["replays"]
+    rows, checks = {}, {}
+    for i, n in enumerate(MXU_SIZES):
+        out, ms = first[n]
+        want = ref[f"pose_{n}"]
+        rows[n] = dict(
+            fast_path_fraction=out["fast_path_fraction"],
+            jax_fast_path_fraction=float(ref[f"fast_path_fraction_{n}"]),
+            overflow_steps=out["overflow_steps"],
+            jax_overflow_steps=int(ref[f"overflow_steps_{n}"]),
+            jax_eager_diag=ref[f"eager_diag_{n}"].tolist(),
+            accepted=out["accepted"], pose=out["pose"].tolist(),
+            residual=out["residual"],
+            jax_residual=float(ref[f"residual_{n}"]),
+            vs_jax_m=float(np.linalg.norm(out["pose"][:2] - want[:2])),
+            vs_jax_rad=yaw_err(out["pose"][2], want[2]),
+            refine_equal_jax=bool(np.array_equal(
+                refined[i], ref[f"refine_hyp_{n}"])),
+            again_equal=same_recovery(again[n], out),
+            first_ms=ms, warm_ms=warm[n])
+    checks["mxu_telemetry_equal_jax"] = all(
+        r["fast_path_fraction"] == r["jax_fast_path_fraction"]
+        and r["overflow_steps"] == r["jax_overflow_steps"]
+        for r in rows.values())
+    checks["mxu_refine_batch_equal_jax"] = all(
+        r["refine_equal_jax"] for r in rows.values())
+    checks["mxu_winner_jax"] = all(
+        r["accepted"] == bool(ref[f"accepted_{n}"])
+        and r["vs_jax_m"] < JAX_WINNER_M and r["vs_jax_rad"] < JAX_WINNER_RAD
+        for n, r in rows.items())
+    checks["mxu_graphed_equal_eager"] = all(
+        r["again_equal"] for r in rows.values()) and graph_equal.get(
+        "match_hypotheses_mxu_jit") == [True] * len(MXU_SIZES)
+    # one graph for the session's map (both batches are 256 wide and
+    # take the same bucket count), each capture's warm-up and every
+    # replay launching the moments kernel once a GN step
+    checks["mxu_launches"] = (
+        captures == 1 and replays == len(MXU_SIZES)
+        and entry.per_replay["interp_moments"] == 14
+        and launches["interp_moments"] == 14 * (captures + replays))
+    report = dict(rows={str(n): r for n, r in rows.items()},
+                  captures=captures, replays=replays,
+                  per_replay=entry.per_replay, warmup=entry.warmup,
+                  pool_bytes=entry.pool_bytes, kernel_launches=launches,
+                  graphed_equal_eager=graph_equal)
+    return dict(launches=launches, checks=checks, report=report)
+
+
+def phase_mxu(dev, kernels, hyp_inputs):
+    """match_hypotheses_mxu_jit, the theta-bucketed patch matcher, at
+    bench.py's workload (the batched phase's map, 4096 hypotheses, its
+    scan; bench.py's default bucket count): the graph's first call and a
+    replay on the path (14 moments launches each and 14 in the capture's
+    warm-up: the full path runs on every GN step), then off the path:
+    the replay bit-equal to the eager function, one capture then none,
+    the stream syncs of a replay, poses against
+    match_hypotheses_kernel_jit's by quantiles, the diag, device ms of
+    the graphed and eager calls and of the kernel route (CUDA events,
+    host-fed), the graph's pool and the peak memory of its first call.
+    Returns the path's launches."""
+    import hector_slam_tpu_torch as ht
+    from hector_slam_tpu_torch.core import graphs
+    from hector_slam_tpu_torch.core.slam import quads_of
+    cfg = ht.BENCH_CONFIG
+    levels = [torch.from_numpy(lo).to(dev) for lo in hyp_inputs["levels"]]
+    quads = quads_of(levels, cfg.update.cell_model)
+    hyp = torch.from_numpy(hyp_inputs["hypotheses"]).to(dev)
+    scan = ht.Scan(*(torch.from_numpy(hyp_inputs[f]).to(dev)
+                     for f in ("points", "origo", "mask")))
+    steps = sum((cfg.match.iterations_finest if lvl == 0
+                 else cfg.match.iterations_coarse) + 1
+                for lvl in range(cfg.map.levels))
+
+    def graphed():
+        return ht.match_hypotheses_mxu_jit(levels, hyp, scan, cfg,
+                                           with_diag=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    reset_counts(kernels)
+    before = graphs.totals()
+    first, first_ms = timed_call(graphed)
+    peak_mem = torch.cuda.max_memory_allocated() - base_mem
+    mid = graphs.totals()
+    (second, diag), syncs = count_host_syncs(graphed)
+    launches = read_counts(kernels)
+    after = graphs.totals()
+    entry = [g for g in graphs.stats()
+             if g.name == "match_hypotheses_mxu_jit"][-1]
+    eager, eager_diag = ht.match_hypotheses_mxu(levels, hyp, scan, cfg,
+                                                with_diag=True)
+    kernel, _ = ht.match_hypotheses_kernel_jit(levels, hyp, scan, cfg,
+                                               quads=quads)
+    pose, kpose = second.pose.cpu().numpy(), kernel.pose.cpu().numpy()
+    diffs = np.abs(pose - kpose).max(-1)
+    p50, p90, p99 = (float(np.percentile(diffs, q)) for q in (50, 90, 99))
+    diag_list = [float(x) for x in diag]
+    times = {}
+    for label in ("graphed", "kernel_route", "kernel_route", "graphed"):
+        fn = graphed if label == "graphed" else (
+            lambda: ht.match_hypotheses_kernel_jit(levels, hyp, scan, cfg,
+                                                   quads=quads))
+        times.setdefault(label, []).append(cuda_ms(fn, MXU_REPS))
+    eager_ms = cuda_ms(lambda: ht.match_hypotheses_mxu(
+        levels, hyp, scan, cfg, with_diag=True), 2)
+    checks = {
+        "bit_equal_eager": tree_equal(first, (second, diag))
+        and tree_equal((second, diag), (eager, eager_diag)),
+        "one_capture_then_none": mid["captures"] - before["captures"] == 1
+        and after["captures"] == mid["captures"]
+        and after["replays"] - mid["replays"] == 1,
+        "no_sync_in_replay": len(syncs) == 0,
+        "launches": launches["interp_moments"] == 3 * steps
+        and entry.per_replay["interp_moments"] == steps
+        and entry.warmup["interp_moments"] == steps,
+        "vs_kernel_route": p90 < MXU_P90_M and p99 < MXU_P99_M,
+        "finite": bool(np.isfinite(pose).all()) and pose.shape == (
+            hyp.shape[0], 3),
+    }
+    ok = all(checks.values())
+    emit("mxu", ok=ok, checks=checks, card=card_line(),
+         hypotheses=hyp.shape[0], num_buckets=0, gn_steps=steps,
+         diag=dict(zip(("repaired_queries", "overflow_steps",
+                        "total_queries", "slow_queries"), diag_list),
+                   fast_path_fraction=float(diag.fast_path_fraction())),
+         first_call_ms=first_ms, graphed_ms=times["graphed"],
+         kernel_route_ms=times["kernel_route"], eager_ms=eager_ms,
+         matches_per_s=hyp.shape[0] / (min(times["graphed"]) / 1e3),
+         pool_bytes=entry.pool_bytes, first_call_peak_mem_bytes=peak_mem,
+         replay_syncs=syncs, kernel_launches=launches,
+         vs_kernel_route_p50=p50, vs_kernel_route_p90=p90,
+         vs_kernel_route_p99=p99, vs_kernel_route_max=float(diffs.max()))
+    if not ok:
+        raise SystemExit("mxu failed its checks: " + ", ".join(
             k for k, v in checks.items() if not v))
     return launches
 
@@ -2278,6 +2508,7 @@ def run_paths(dev):
     paths["session"] = phase_session(kernels, run_log_poses)
     paths["batched"], levels, abs_main, hyp_inputs = phase_batched(
         dev, kernels)
+    paths["mxu"] = phase_mxu(dev, kernels, hyp_inputs)
     paths["fleet"], fleet_first, fleet_scans, fleet = phase_fleet(kernels)
     paint_inputs["fleet"] = ("per_robot", *fleet_first)
     (paths["shared_fleet"], shared_first, shared_scans, starts,

@@ -24,12 +24,14 @@ from .export.geotiff import GeotiffExporter, write_geotiff
 from .export.markers import arrow_marker, covariance_ellipse, pose_markers
 from .export.images import map_tile_image, map_to_image, write_pgm, write_png
 from .export.occupancy import (GridMeta, grid_meta, map_extends,
-                               to_occupancy_grid, to_occupancy_grid_tensor)
+                               to_occupancy_grid, to_occupancy_grid_jax,
+                               to_occupancy_grid_tensor)
 from .export.pose_output import (covariance_6x6, covariance_world_coords,
                                  pose_stamped, quaternion_to_yaw,
                                  yaw_to_quaternion)
 from .export.trajectory import RecoveryInfo, TrajectoryRecorder
-from .io.checkpoint import load_state, save_state
+from .io.checkpoint import (load_state, load_state_dcp, save_state,
+                            save_state_dcp)
 from .io.scanlog import (LaserModel, load_log, save_log, scan_from_points,
                          scan_from_ranges, stack_scans)
 from .ops.interp_moments import interp_moments, interp_moments_plain
@@ -39,6 +41,10 @@ from .parallel.batch import (best_hypothesis, fleet_step, fleet_step_jit,
                              match_hypotheses_jit, residual_for_poses)
 from .parallel.kernel_match import (MatchDiag, match_hypotheses_kernel,
                                     match_hypotheses_kernel_jit)
+from .parallel.onehot_match import (match_hypotheses_mxu,
+                                    match_hypotheses_mxu_jit)
+from .parallel.pallas_match import (match_hypotheses_pallas,
+                                    match_hypotheses_pallas_jit)
 from .parallel.recovery import auto_prune_top_k, prune_hypotheses_coarse
 from .parallel.shared_map import (init_shared_fleet, shared_fleet_step,
                                   shared_fleet_step_jit)
@@ -61,11 +67,11 @@ __all__ = [
     "arrow_marker", "covariance_ellipse", "pose_markers",
     "map_tile_image", "map_to_image", "write_pgm", "write_png",
     "GridMeta", "grid_meta", "map_extends", "to_occupancy_grid",
-    "to_occupancy_grid_tensor",
+    "to_occupancy_grid_jax", "to_occupancy_grid_tensor",
     "covariance_6x6", "covariance_world_coords", "pose_stamped",
     "quaternion_to_yaw", "yaw_to_quaternion",
     "RecoveryInfo", "TrajectoryRecorder",
-    "load_state", "save_state",
+    "load_state", "save_state", "load_state_dcp", "save_state_dcp",
     "LaserModel", "load_log", "save_log", "scan_from_points",
     "scan_from_ranges", "stack_scans",
     "interp_moments", "interp_moments_plain",
@@ -74,6 +80,8 @@ __all__ = [
     "match_hypotheses", "match_hypotheses_jit", "residual_for_poses",
     "init_shared_fleet", "shared_fleet_step", "shared_fleet_step_jit",
     "MatchDiag", "match_hypotheses_kernel", "match_hypotheses_kernel_jit",
+    "match_hypotheses_mxu", "match_hypotheses_mxu_jit",
+    "match_hypotheses_pallas", "match_hypotheses_pallas_jit",
     "auto_prune_top_k", "prune_hypotheses_coarse", "SlamSession",
     "distance_to_obstacle", "distance_to_obstacle_batch",
     "get_distance_to_obstacle", "get_normal", "get_search_position",

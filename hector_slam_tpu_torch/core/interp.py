@@ -185,14 +185,21 @@ def normal_eqs_quad(
     rot = (-sin_rot * px - cos_rot * py) * gx + \
         (cos_rot * px - sin_rot * py) * gy
     rot = torch.where(mask, rot, zero)
+    used = (in_bounds & mask).sum(dim=-1).to(torch.float32)
+    return NormalEqs(*moment_sums(gx, gy, rot, fun), used)
+
+
+def moment_sums(gx: torch.Tensor, gy: torch.Tensor, rot: torch.Tensor,
+                fun: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(J^T J f32[..., 3, 3], J^T fun f32[..., 3]) of the per-beam
+    Jacobian rows (gx, gy, rot) and residuals ``fun``, each [..., N],
+    summed over the beam axis by ``beam_sum``."""
     # (gx, gy, rot) times (gx, gy, rot, fun) in one [3, 4, ..., N] product:
     # J^T J and J^T (1-M) side by side (the lower triangle repeats the
     # upper one bit for bit)
     f = torch.stack([gx, gy, rot, fun])
     s = beam_sum(f[:3, None] * f[None])                    # [3, 4, ...]
-    used = (in_bounds & mask).sum(dim=-1).to(torch.float32)
-    return NormalEqs(s[:, :3].movedim((0, 1), (-2, -1)),
-                     s[:, 3].movedim(0, -1), used)
+    return s[:, :3].movedim((0, 1), (-2, -1)), s[:, 3].movedim(0, -1)
 
 
 def assemble_hessian(xx, xy, xt, yy, yt, tt) -> torch.Tensor:

@@ -83,6 +83,10 @@ def to_occupancy_grid_tensor(log_odds: torch.Tensor,
     return torch.where(occ, 100, torch.where(free, 0, -1)).to(torch.int8)
 
 
+# the JAX package's name for the device-side grid
+to_occupancy_grid_jax = to_occupancy_grid_tensor
+
+
 def map_extends(occ_grid: np.ndarray
                 ) -> Optional[Tuple[Tuple[int, int], Tuple[int, int]]]:
     """Bounding box of known (!= -1) cells: ((xmin, ymin),

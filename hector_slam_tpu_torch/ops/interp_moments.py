@@ -9,6 +9,12 @@ the design: a warp per hypothesis over the valid beams, staged once per
 block in shared memory). ``interp_moments`` launches the kernel for CUDA
 tensors and runs ``interp_moments_plain`` only for CPU tensors; there is
 no fallback from one to the other.
+
+The JAX module's granular repair (``_first_k_indices``,
+``bad_query_corrections``, ``_moment_corrections``,
+``hector_slam_tpu/ops/pallas_interp.py:439-531``) is plain tensor code
+and lives here too: the kernel needs no repair, but the one-hot matcher
+(parallel/onehot_match.py) repairs its patch-overflow queries with it.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ..core.interp import assemble_hessian, normal_eqs_quad
+from ..core.interp import assemble_hessian, interp_quad, normal_eqs_quad
 from . import cuda_build
 
 _OUT = 10   # 9 moments + used count per hypothesis
@@ -133,3 +139,122 @@ def interp_moments(
 
 
 interp_moments.launches = 0   # kernel launches, for chip_smoke.py
+
+
+# ---- the granular repair of a fast path's left-out queries -----------------
+
+
+def _first_k_indices(flat: torch.Tensor, k: int):
+    """Flat indices of the first ``k`` True elements of a bool vector, by
+    two-level compaction: per-128-block popcounts, a cumsum over the
+    block counts, a left-side searchsorted placing each rank in its
+    block, then an in-block cumsum whose first hit of the rank is the
+    column. Returns (idx i32[k], valid bool[k], total i32[]). Ranks past
+    the total are not valid; their indices are in [0, len rounded up to
+    128) and mean nothing."""
+    pad = (-flat.shape[0]) % 128
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    blocks = flat.reshape(-1, 128)
+    m = blocks.shape[0]
+    cnt = blocks.sum(dim=1, dtype=torch.int32)             # [M]
+    cpos = torch.cumsum(cnt, 0, dtype=torch.int32)
+    total = cpos[-1]
+    j = torch.arange(1, k + 1, dtype=torch.int32, device=flat.device)
+    mb = torch.clamp(torch.searchsorted(cpos, j, out_int32=True),
+                     max=m - 1)                            # block of rank j
+    before = torch.where(mb > 0, cpos[torch.clamp(mb - 1, min=0).long()],
+                         0)
+    rank = j - before                                      # 1-based in block
+    rows = blocks[mb.long()].to(torch.int32)               # [k, 128]
+    rcum = torch.cumsum(rows, 1, dtype=torch.int32)
+    # argmax returns the first maximum: the first column reaching the rank
+    col = torch.argmax((rcum == rank[:, None]).to(torch.uint8), dim=1)
+    idx = mb * 128 + col.to(torch.int32)
+    return idx, j <= total, total
+
+
+def bad_query_corrections(
+    quad: torch.Tensor,        # f32[H*W, 4] quad-packed prob grid
+    shape: Tuple[int, int],
+    tx: torch.Tensor,          # f32[B, N] map-frame query coords
+    ty: torch.Tensor,
+    sin_t: torch.Tensor,       # f32[B]
+    cos_t: torch.Tensor,
+    points: torch.Tensor,      # f32[N, 2]
+    bad: torch.Tensor,         # bool[B, N] queries to re-evaluate
+    k_budget: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact moment contributions of the ``bad`` queries: budgeted
+    compaction, a quad gather each, and a per-hypothesis sum. Returns
+    (h_corr f32[B, 3, 3], d_corr f32[B, 3]) to add to a fast path that
+    left those queries out. Only the first ``k_budget`` bad queries are
+    covered: callers check ``bad.sum() <= k_budget`` and take the full
+    path otherwise."""
+    b_total, n = tx.shape
+    flat_idx, valid, _ = _first_k_indices(bad.reshape(-1), k_budget)
+    flat_idx = flat_idx.long()
+    b_i = flat_idx // n
+    n_i = flat_idx % n
+    # an invalid rank's index may lie past the queries (the block
+    # padding); JAX's gather clamps it, and its terms are zeroed
+    q = torch.clamp(flat_idx, max=b_total * n - 1)
+    txq = tx.reshape(-1)[q]
+    tyq = ty.reshape(-1)[q]
+    return _moment_corrections(quad, shape, txq, tyq, sin_t, cos_t, points,
+                               b_i, n_i, valid, b_total)
+
+
+def _moment_corrections(quad, shape, txq, tyq, sin_t, cos_t, points,
+                        b_i, n_i, valid, b_total):
+    """The repair's tail: exact quad-gather moment contributions of K
+    compacted queries, summed into their hypotheses' 3x3 H and dTr.
+
+    JAX sums them with ``segment_sum``, a scatter-add; on the card a
+    scatter-add adds by atomics in no fixed order. Compaction leaves the
+    valid queries first, hypothesis-major and ascending, so each
+    hypothesis's terms are one contiguous run, summed here by a
+    segmented scan of elementwise steps (``_run_sums``): one order on
+    every device and every call."""
+    m, gx, gy = interp_quad(quad, shape, torch.stack([txq, tyq], dim=-1))
+    pxq = points[n_i, 0]
+    pyq = points[n_i, 1]
+    b_q = torch.clamp(b_i, max=b_total - 1)
+    s_q = sin_t[b_q]
+    c_q = cos_t[b_q]
+    rot = (-s_q * pxq - c_q * pyq) * gx + (c_q * pxq - s_q * pyq) * gy
+    zero = torch.zeros((), dtype=m.dtype, device=m.device)
+    m = torch.where(valid, m, zero)
+    gx = torch.where(valid, gx, zero)
+    gy = torch.where(valid, gy, zero)
+    rot = torch.where(valid, rot, zero)
+    fun = torch.where(valid, 1.0 - m, zero)
+    terms = torch.stack([gx * gx, gx * gy, gx * rot,
+                         gy * gy, gy * rot, rot * rot,
+                         gx * fun, gy * fun, rot * fun], dim=-1)  # [K, 9]
+    # the invalid ranks (a suffix) form one run past the last hypothesis
+    corr = _run_sums(terms, torch.where(valid, b_i, b_total), b_total)
+    return assemble_hessian(*corr[:, :6].unbind(-1)), corr[:, 6:9]
+
+
+def _run_sums(terms: torch.Tensor, seg: torch.Tensor,
+              num_segments: int) -> torch.Tensor:
+    """Sums of ``terms`` [K, C] over each run of equal ``seg`` (i64[K],
+    non-decreasing) -> f32[num_segments, C]; segments with no term get
+    +0. A Hillis-Steele segmented inclusive scan (log2 K elementwise
+    steps) leaves each run's sum on its last element."""
+    k = terms.shape[0]
+    if k == 0:
+        return terms.new_zeros((num_segments, terms.shape[1]))
+    d = 1
+    while d < k:
+        same = (seg[d:] == seg[:-d])[:, None]
+        terms = torch.cat([terms[:d], torch.where(
+            same, terms[d:] + terms[:-d], terms[d:])])
+        d *= 2
+    ids = torch.arange(num_segments, dtype=seg.dtype, device=seg.device)
+    last = torch.clamp(torch.searchsorted(seg, ids, right=True) - 1, min=0)
+    has = seg[last] == ids
+    return torch.where(has[:, None], terms[last],
+                       torch.zeros((), dtype=terms.dtype,
+                                   device=terms.device))

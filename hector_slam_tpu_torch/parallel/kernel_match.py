@@ -35,12 +35,16 @@ from ..ops.interp_moments import interp_moments
 
 class MatchDiag(NamedTuple):
     """Fast-path telemetry, fields as in the JAX driver. Query totals are
-    f32 (they scale as hypotheses x beams x GN steps)."""
+    f32 (they scale as hypotheses x beams x GN steps). Through the moments
+    kernel no query leaves the fast path, so the counts other than the
+    total are 0; the patch matcher (parallel/onehot_match.py) reports its
+    repairs and overflowed steps."""
 
-    repaired_queries: torch.Tensor   # i32[] (always 0: no window repair)
-    overflow_steps: torch.Tensor     # i32[] (always 0: no budget fallback)
+    repaired_queries: torch.Tensor   # i32[] left-out queries repaired
+    overflow_steps: torch.Tensor     # i32[] GN steps past the repair budget
     total_queries: torch.Tensor      # f32[] hypothesis x beam x GN-step count
-    slow_queries: torch.Tensor       # f32[] queries off the kernel (0)
+    slow_queries: torch.Tensor       # f32[] repaired + every query of an
+    #                                  overflowed step
 
     def fast_path_fraction(self):
         tot = torch.clamp(self.total_queries, min=1.0)

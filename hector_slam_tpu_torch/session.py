@@ -43,6 +43,7 @@ from .io.scanlog import LaserModel, scan_from_points, scan_from_ranges
 from .parallel.batch import (match_hypotheses_jit, residual_for_poses,
                              residual_for_poses_jit)
 from .parallel.kernel_match import match_hypotheses_kernel_jit
+from .parallel.onehot_match import auto_num_buckets, match_hypotheses_mxu_jit
 from .parallel.recovery import (auto_prune_top_k, cascade_refine_jit,
                                 prune_hypotheses_coarse)
 from .types import Scan, SlamState, resolve_device
@@ -329,7 +330,9 @@ class SlamSession:
                    seed: int = 0,
                    use_pallas: Optional[bool] = None,
                    method: Optional[str] = None,
+                   pallas_interpret: bool = False,
                    theta_stratified: Optional[bool] = None,
+                   k_budget: int = 8192,
                    prune_top_k: Optional[int] = None) -> dict:
         """Batched recovery: spawns ``n_hypotheses`` start poses around
         the current pose (hypothesis 0 IS the current pose), GN-matches
@@ -344,13 +347,21 @@ class SlamSession:
         the card, kept for the session's maps; eager on the CPU):
           - "pallas": ``match_hypotheses_kernel_jit`` (the moments kernel),
             through ``cascade_refine_jit`` when the batch was pruned;
-          - "mxu":    ``match_hypotheses_kernel_jit`` on the whole batch,
-            no cascade;
+          - "mxu":    ``match_hypotheses_mxu_jit`` (the theta-bucketed
+            patch matcher, its bucket count from the hypotheses' theta
+            spread by ``auto_num_buckets``, JAX's default repair budget)
+            on the whole batch, no cascade;
           - "quad":   ``match_hypotheses_jit``, the torch-op matcher;
           - None:     "pallas" on the card, "quad" on the CPU.
         ``use_pallas`` (bool) is the legacy spelling of "pallas"/"quad".
         The pruning, the finest-level scoring and the acceptance stay
         eager, as in the JAX session.
+
+        ``pallas_interpret`` and ``k_budget`` are the JAX session's: there
+        they run the TPU kernel in interpret mode and size the repair
+        budget of its VMEM windows. The card's moments kernel has no
+        windows, so on the port they change no result; "mxu" uses its own
+        default budget, as in JAX.
 
         ``theta_stratified`` (default: on for n >= 128) samples theta on
         a grid of n/128 values over +-2 sigma_theta, one per 128
@@ -362,8 +373,9 @@ class SlamSession:
         "fast_path_fraction", "overflow_steps"}. ``accepted`` is False
         (pose and covariance untouched) unless some challenger strictly
         beats the GN-refined incumbent's residual.
-        ``fast_path_fraction`` is 1.0 through the kernel (no query leaves
-        it) and None for "quad"."""
+        ``fast_path_fraction`` and ``overflow_steps`` are the matcher's
+        telemetry: 1.0 and 0 through the moments kernel (no query leaves
+        it), the patch matcher's for "mxu", None and 0 for "quad"."""
         scan, method = self._scan_and_method(scan, method, use_pallas)
         rng = np.random.default_rng(seed)
         base = self.pose
@@ -408,9 +420,14 @@ class SlamSession:
         if method == "pallas" and use_cascade and self.cfg.map.levels >= 2:
             result, diag = cascade_refine_jit(st.log_odds, hyp, scan,
                                               self.cfg, quads=st.quads)
-        elif method in ("pallas", "mxu"):
+        elif method == "pallas":
             result, diag = match_hypotheses_kernel_jit(
                 st.log_odds, hyp, scan, self.cfg, quads=st.quads)
+        elif method == "mxu":
+            result, diag = match_hypotheses_mxu_jit(
+                st.log_odds, hyp, scan, self.cfg,
+                num_buckets=auto_num_buckets(hyp),
+                with_diag=True)
         else:
             result = match_hypotheses_jit(st.log_odds, hyp, scan, self.cfg)
         res = residual_for_poses(st.log_odds[0], result.pose, scan, self.cfg,
@@ -438,6 +455,8 @@ class SlamSession:
                           n_positions: int = 2048, n_theta: int = 32,
                           top_k: int = 1024, seed: int = 0,
                           method: Optional[str] = None,
+                          k_budget: int = 8192,
+                          pallas_interpret: bool = False,
                           beam_stride: int = 8) -> dict:
         """Global (position-unknown) relocalization over the whole mapped
         free space — the kidnapped-robot problem with no prior; the
@@ -455,6 +474,9 @@ class SlamSession:
         2. Refine: the incumbent and the ``top_k - 1`` best sweep entries,
            sorted by heading, through ``_refine_and_accept`` with the
            cascade — ``relocalize``'s acceptance bar.
+
+        ``k_budget`` and ``pallas_interpret``: as in ``relocalize``, JAX's
+        TPU-window options, which change no result on the port.
 
         Returns the ``relocalize`` dict plus ``n_free_cells`` and
         ``sweep_best_residual``."""

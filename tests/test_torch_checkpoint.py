@@ -184,3 +184,41 @@ def test_checkpoint_refuses_a_leaf_of_another_shape(tmp_path, states):
             ht.load_state(p, TCFG, template=template, device="cpu")
     with pytest.raises(ValueError):
         j_load(p, JCFG, template=j_init_fleet(JCFG, 2))
+
+
+def test_dcp_checkpoint_roundtrip_matches_the_orbax_pair(tmp_path, states):
+    """The directory checkpoints: the port's ``save_state_dcp`` /
+    ``load_state_dcp`` (torch.distributed.checkpoint, one process, no
+    process group) give every leaf back bit for bit with its quads
+    recomputed, as the JAX package's orbax pair does for the same state;
+    the default device is the card."""
+    from hector_slam_tpu.io.checkpoint import (load_state_orbax,
+                                               save_state_orbax)
+    state = _port_state(states["single"], "single")
+    p = str(tmp_path / "dcp")
+    assert ht.save_state_dcp(p, state)
+    restored = ht.load_state_dcp(p, TCFG, device="cpu")
+    _assert_same(restored, state)
+    for a, b in zip(restored.quads, state.quads):
+        assert torch.equal(a, b)
+    assert all(t.device.type == "cpu" for t in restored.log_odds)
+    assert save_state_orbax(str(tmp_path / "orbax"), states["single"])
+    _assert_same(load_state_orbax(str(tmp_path / "orbax"), JCFG), restored)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            ht.load_state_dcp(p, TCFG)
+
+
+def test_dcp_checkpoint_refuses_another_config(tmp_path, states):
+    """``load_state_dcp`` refuses a config of another level count or map
+    size, as ``load_state`` does."""
+    p = str(tmp_path / "dcp")
+    assert ht.save_state_dcp(p, _port_state(states["single"], "single"))
+    three = ht.SlamConfig(map=ht.MapConfig(resolution=0.05, size_x=256,
+                                           size_y=256, levels=3))
+    with pytest.raises(ValueError, match="levels"):
+        ht.load_state_dcp(p, three, device="cpu")
+    wide = ht.SlamConfig(map=ht.MapConfig(resolution=0.05, size_x=512,
+                                          size_y=256, levels=2))
+    with pytest.raises(ValueError, match="shape"):
+        ht.load_state_dcp(p, wide, device="cpu")

@@ -1013,6 +1013,43 @@ def test_recovery_graphs_bit_equal_to_eager_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k_budget", [4096, 64])
+def test_mxu_graph_bit_equal_to_eager_on_card(cuda_device, k_budget):
+    """match_hypotheses_mxu_jit on the kidnap batch (256 pruned draws;
+    most GN steps past the budget, some repaired at 64 as well): bit-equal
+    to the eager matcher, 14 moments launches a replay (the full path on
+    every GN step), no stream sync in a replay, and the same result under
+    a float32 matmul precision of "high" (the patch selection is a
+    gather)."""
+    from hector_slam_tpu_torch.core import graphs
+    cfg = ht.BENCH_CONFIG
+    state, scan, hyp = _kidnap_inputs(cuda_device)
+    graphs.clear()
+    kw = dict(num_buckets=2, k_budget=k_budget, with_diag=True)
+    want = ht.match_hypotheses_mxu(state.log_odds, hyp, scan, cfg, **kw)
+    got = ht.match_hypotheses_mxu_jit(state.log_odds, hyp, scan, cfg, **kw)
+    for a, b in zip(want[0] + want[1], got[0] + got[1]):
+        assert torch.equal(a, b)
+    [entry] = graphs.stats()
+    assert entry.per_replay["interp_moments"] == 14
+    assert int(got[1].overflow_steps) > 0
+    prev = torch.get_float32_matmul_precision()
+    torch.cuda.synchronize()
+    torch.set_float32_matmul_precision("high")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = ht.match_hypotheses_mxu_jit(state.log_odds, hyp, scan, cfg,
+                                            **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.set_float32_matmul_precision(prev)
+    for a, b in zip(want[0] + want[1], again[0] + again[1]):
+        assert torch.equal(a, b)
+    assert graphs.stats()[0].replays == 2
+    graphs.clear()
+
+
+@pytest.mark.cuda
 def test_session_reset_keeps_the_step_graph_on_card(cuda_device):
     """Three reset() calls, each followed by one scan: no new capture, no
     new reserved device memory, the state bit-equal to init_state's

@@ -54,7 +54,8 @@ def test_port_imports_no_jax():
     for mod in ("core/covariance.py", "core/debug.py", "core/collectives.py",
                 "query/raycast.py", "export/markers.py", "io/checkpoint.py",
                 "io/attitude.py", "parallel/sharded.py", "core/graphs.py",
-                "save_geotiff.py"):
+                "save_geotiff.py", "parallel/onehot_match.py",
+                "parallel/pallas_match.py"):
         assert os.path.join(PKG, mod) in files, mod
     for path in files:
         for mod in _imported_modules(path):
@@ -62,23 +63,25 @@ def test_port_imports_no_jax():
             assert root not in FORBIDDEN, f"{path} imports {mod}"
 
 
-# the JAX names the port does not have, each with its reason in ROADMAP.md
-# ("Not ported"): the TPU routes (Pallas kernel, MXU one-hot matcher) and
-# the JAX-array occupancy grid
-NOT_PORTED = {"match_hypotheses_mxu", "match_hypotheses_mxu_jit",
-              "match_hypotheses_pallas", "match_hypotheses_pallas_jit",
-              "to_occupancy_grid_jax"}
+# the JAX names the port does not have: none since the patch matcher, the
+# Pallas-route names and the device-side occupancy grid were ported
+NOT_PORTED = set()
 
 
 def test_jax_only_names_are_the_documented_not_ported_list():
     """Every name of the JAX package's ``__all__`` is in the port's, the
-    compiled entry points included, except the documented list. The
-    compiled recoveries, like JAX's, live on their modules only."""
+    compiled entry points included. The compiled recoveries, like JAX's,
+    live on their modules only."""
     import hector_slam_tpu as hs
     from hector_slam_tpu.core import covariance as jcov
     from hector_slam_tpu_torch.core import covariance
     from hector_slam_tpu_torch.parallel import batch, recovery, sharded
     assert set(hs.__all__) - set(ht.__all__) == NOT_PORTED
+    assert set(hs.__all__) <= set(ht.__all__)
+    for name in ("match_hypotheses_mxu_jit", "match_hypotheses_pallas_jit",
+                 "to_occupancy_grid_jax"):
+        assert callable(getattr(ht, name)), name
+    assert ht.to_occupancy_grid_jax is ht.to_occupancy_grid_tensor
     for name in ("slam_step_jit", "run_log_jit", "match_hypotheses_jit",
                  "fleet_step_jit", "shared_fleet_step_jit",
                  "match_hypotheses_kernel_jit", "match_pyramid_debug_jit"):

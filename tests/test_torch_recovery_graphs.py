@@ -52,6 +52,8 @@ from test_torch_recovery import _kidnapped_pair, _yaw_err, corridor  # noqa: F40
 
 REFERENCE = os.path.join(os.path.dirname(__file__), "fixtures",
                          "queries_jax_reference.npz")
+MXU_REFERENCE = os.path.join(os.path.dirname(__file__), "fixtures",
+                             "mxu_jax_reference.npz")
 CFG = ht.BENCH_CONFIG
 KIDNAP = np.asarray([0.6, -0.5, 0.25], np.float32)
 RESIDUAL_REL = 1e-4
@@ -206,7 +208,8 @@ def _routes(monkeypatch):
         return wrapped
 
     for name in ("cascade_refine_jit", "match_hypotheses_kernel_jit",
-                 "match_hypotheses_jit", "residual_for_poses_jit"):
+                 "match_hypotheses_mxu_jit", "match_hypotheses_jit",
+                 "residual_for_poses_jit"):
         monkeypatch.setattr(tsession, name, spy(name))
     eager = tsession.residual_for_poses
 
@@ -222,17 +225,31 @@ def _routes(monkeypatch):
 @pytest.mark.parametrize("method,n,route", [
     ("pallas", 1024, "cascade_refine_jit"),
     ("pallas", 256, "match_hypotheses_kernel_jit"),
-    ("mxu", 256, "match_hypotheses_kernel_jit"),
+    ("mxu", 256, "match_hypotheses_mxu_jit"),
+    ("mxu", 1024, "match_hypotheses_mxu_jit"),
     ("quad", 256, "match_hypotheses_jit")])
 def test_session_relocalize_takes_the_compiled_routes(as_on_card, bench,
                                                       monkeypatch, method, n,
                                                       route):
     """Each method through its compiled route (JAX session.py:431-457),
     on the graph path: one graph of that name, replayed by a second call
-    from the same state with no new capture, the result unchanged."""
+    from the same state with no new capture, the result unchanged.
+    "mxu" (n = 256, and 1024 pruned to 256) refines JAX's batch and
+    reports JAX's telemetry exactly (tests/fixtures/mxu_jax_reference.npz,
+    written by tools/make_torch_mxu_reference.py: 13 of 14 GN steps past
+    the repair budget, fraction 1/14), its winner within 1e-4 m and 1e-4
+    rad of JAX's."""
     for name in ("cascade_refine", "match_hypotheses_kernel",
-                 "match_hypotheses"):
+                 "match_hypotheses_mxu", "match_hypotheses"):
         assert not hasattr(tsession, name), name
+    refined = []
+    refine = ht.SlamSession._refine_and_accept
+
+    def spy(self, hyp, *args, **kwargs):
+        refined.append(hyp.numpy().copy())
+        return refine(self, hyp, *args, **kwargs)
+
+    monkeypatch.setattr(ht.SlamSession, "_refine_and_accept", spy)
     calls = _routes(monkeypatch)
     _, state, _, scan, kidnapped = bench
     sess = ht.SlamSession(CFG, device="cpu")
@@ -248,6 +265,18 @@ def test_session_relocalize_takes_the_compiled_routes(as_on_card, bench,
     np.testing.assert_array_equal(outs[0]["pose"], outs[1]["pose"])
     assert outs[0]["residual"] == outs[1]["residual"]
     assert outs[0]["accepted"]
+    if method == "mxu":
+        with np.load(MXU_REFERENCE) as z:
+            ref = {k[:-len(f"_{n}")]: z[k] for k in z.files
+                   if k.endswith(f"_{n}")}
+        np.testing.assert_array_equal(refined[0], ref["refine_hyp"])
+        for out in outs:
+            assert out["overflow_steps"] == int(ref["overflow_steps"])
+            assert out["fast_path_fraction"] == float(
+                ref["fast_path_fraction"])
+            assert out["accepted"] == bool(ref["accepted"])
+            assert np.linalg.norm(out["pose"][:2] - ref["pose"][:2]) < 1e-4
+            assert _yaw_err(out["pose"][2], ref["pose"][2]) < 1e-4
 
 
 def test_session_relocalize_global_takes_the_compiled_routes(as_on_card,
