@@ -43,6 +43,16 @@ stay counted.
 
 At most ``MAX_GRAPHS`` graphs are kept, the least recently used dropped
 first (with its pool and its references to held tensors).
+
+Spans and counters (``tracing``): each use of a graph is an
+``hs.graph:<entry>`` span holding ``hs.graph.lookup`` (with
+``hs.graph.capture`` inside it on a miss), ``hs.graph.replay`` and
+``hs.graph.outputs``, and is timed under ``graph.host[<entry>]``; a use
+that captured is left out of that time (and of every time around it) and
+timed under ``graph.capture``. A replay's host time is summed under
+``graph.replay_host``, a graph's first replay left out; the map update
+bodies a capture counted (``update.runs``) are taken back and added
+again at every replay, as the launches are. ``totals()`` reads them.
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ from typing import Callable, Dict, List, NamedTuple, Sequence
 
 import torch
 
+from .. import tracing
 from ..ops.interp_moments import interp_moments
 from ..ops.paint_cells import paint_cells
 
@@ -71,7 +82,7 @@ class Entry:
     """One captured graph: its static buffers, outputs and counts."""
 
     def __init__(self, name, graph, held, statics, outputs, per_replay,
-                 warmup, pool_bytes):
+                 warmup, pool_bytes, updates=0):
         self.name = name
         self.graph = graph
         self.held = held          # kept alive: the graph uses their memory
@@ -80,6 +91,7 @@ class Entry:
         self.per_replay = per_replay
         self.warmup = warmup
         self.pool_bytes = pool_bytes
+        self.updates = updates    # map update bodies in one replay
         self.replays = 0
 
     def copy_in(self, copied: Sequence[torch.Tensor]) -> None:
@@ -88,12 +100,15 @@ class Entry:
                 static.copy_(src)
 
     def replay(self) -> None:
-        self.graph.replay()
+        with tracing.Timer("graph.replay_host", "hs.graph.replay",
+                           timed=self.replays > 0):
+            self.graph.replay()
         self.replays += 1
         _TOTALS["replays"] += 1
         for name, n in self.per_replay.items():
             COUNTED[name].launches += n
             _TOTALS["launches"][name] += n
+        tracing.count("update.runs", self.updates)
 
     def stats(self) -> GraphStats:
         return GraphStats(self.name, dict(self.per_replay), dict(self.warmup),
@@ -115,6 +130,10 @@ def on_card(t: torch.Tensor) -> bool:
 
 def _counts() -> Dict[str, int]:
     return {name: k.launches for name, k in COUNTED.items()}
+
+
+def _updates() -> int:
+    return tracing.counters().get("update.runs", 0)
 
 
 def _key(name, static_key, held, copied):
@@ -143,6 +162,7 @@ def _capture(name, held, copied, body) -> Entry:
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(device)
     before = _counts()
+    updates = _updates()
     stream = torch.cuda.current_stream(device)
     graph = torch.cuda.CUDAGraph()
     try:
@@ -158,12 +178,15 @@ def _capture(name, held, copied, body) -> Entry:
         after = _counts()
         for kname, kernel in COUNTED.items():
             kernel.launches = before[kname]
+        updates = _updates() - updates
+        tracing.count("update.runs", -updates)
     per_replay = {k: n - before[k] for k, n in after.items()}
     _TOTALS["captures"] += 1
     for kname, n in warmup.items():
         _TOTALS["launches"][kname] += n
     return Entry(name, graph, list(held), statics, outputs, per_replay,
-                 warmup, torch.cuda.memory_reserved(device) - reserved)
+                 warmup, torch.cuda.memory_reserved(device) - reserved,
+                 updates)
 
 
 def entry(name: str, static_key, held: Sequence[torch.Tensor],
@@ -175,17 +198,28 @@ def entry(name: str, static_key, held: Sequence[torch.Tensor],
     static buffers. The caller then replays it (``Entry.replay``) and
     reads ``Entry.outputs`` and ``Entry.statics``, which the next replay
     overwrites."""
-    key = _key(name, static_key, held, copied)
-    found = _CACHE.get(key)
-    if found is None:
-        found = _capture(name, held, copied, body)
-        _CACHE[key] = found
-        while len(_CACHE) > MAX_GRAPHS:
-            _CACHE.popitem(last=False)
-    else:
-        _CACHE.move_to_end(key)
-    found.copy_in(copied)
+    with tracing.span("hs.graph.lookup"):
+        key = _key(name, static_key, held, copied)
+        found = _CACHE.get(key)
+        if found is None:
+            with tracing.Timer("graph.capture", "hs.graph.capture"):
+                found = _capture(name, held, copied, body)
+            tracing.captured()
+            _CACHE[key] = found
+            while len(_CACHE) > MAX_GRAPHS:
+                _CACHE.popitem(last=False)
+                tracing.count("graph.evictions")
+        else:
+            _CACHE.move_to_end(key)
+        found.copy_in(copied)
     return found
+
+
+def use(name: str) -> tracing.Timer:
+    """The span ``hs.graph:<name>`` and the timer ``graph.host[<name>]``
+    of one use of an entry point's graph: lookup, copy-in, replay and
+    outputs."""
+    return tracing.Timer(f"graph.host[{name}]", f"hs.graph:{name}")
 
 
 def call(name: str, static_key, held: Sequence[torch.Tensor],
@@ -193,19 +227,25 @@ def call(name: str, static_key, held: Sequence[torch.Tensor],
          fn: Callable[[List[torch.Tensor], List[torch.Tensor]], object]):
     """One replay of the graph of ``fn(held, statics)``, a function that
     writes nothing into its inputs, and fresh copies of its outputs."""
-    graph = entry(name, static_key, held, copied,
-                  lambda h, statics, write: fn(h, statics))
-    graph.replay()
-    return fresh(graph.outputs)
+    with use(name):
+        graph = entry(name, static_key, held, copied,
+                      lambda h, statics, write: fn(h, statics))
+        graph.replay()
+        return fresh(graph.outputs)
 
 
 def fresh(tree):
     """A copy of every tensor of a (nested) tuple of graph outputs, which
     the graph's next replay would overwrite."""
+    with tracing.span("hs.graph.outputs"):
+        return _fresh(tree)
+
+
+def _fresh(tree):
     if isinstance(tree, torch.Tensor):
         return tree.clone()
     if isinstance(tree, tuple):
-        parts = [fresh(t) for t in tree]
+        parts = [_fresh(t) for t in tree]
         return type(tree)(*parts) if hasattr(tree, "_fields") \
             else tuple(parts)
     return tree
@@ -216,13 +256,14 @@ def write_back(dst: Sequence[torch.Tensor],
     """Copies each ``src`` tensor into its ``dst`` (a donated input),
     skipping those that already are it. Sources that are another
     destination are copied aside first, so no write is read later."""
-    dst, src = list(dst), list(src)
-    ids = {id(t) for t in dst}
-    src = [s.clone() if s is not d and id(s) in ids else s
-           for d, s in zip(dst, src)]
-    for d, s in zip(dst, src):
-        if s is not d:
-            d.copy_(s)
+    with tracing.span("hs.graph.outputs"):
+        dst, src = list(dst), list(src)
+        ids = {id(t) for t in dst}
+        src = [s.clone() if s is not d and id(s) in ids else s
+               for d, s in zip(dst, src)]
+        for d, s in zip(dst, src):
+            if s is not d:
+                d.copy_(s)
 
 
 def stats() -> List[GraphStats]:
@@ -232,10 +273,23 @@ def stats() -> List[GraphStats]:
 
 
 def totals() -> dict:
-    """Since import: {"captures", "replays", "launches": {kernel: the
-    launches of every graph's warm-up and replays}}."""
+    """Since import, surviving ``clear()``: {"captures", "replays",
+    "launches": {kernel: the launches of every graph's warm-up and
+    replays}, "evictions", "capture_ns" (host time of the captures),
+    "replay_host": [replays, replays timed, host ns of the timed ones]
+    (first replays not timed), "entries": {entry point: [uses, uses
+    timed, host ns of the timed ones]} (uses that captured not timed)}."""
+    c = tracing.counters()
+    entries = {name[len("graph.host["):-1]: [c[name], c[name + ".timed"],
+                                            c[name + ".ns"]]
+               for name in c if name.startswith("graph.host[")
+               and name.endswith("]")}
     return {"captures": _TOTALS["captures"], "replays": _TOTALS["replays"],
-            "launches": dict(_TOTALS["launches"])}
+            "launches": dict(_TOTALS["launches"]),
+            "evictions": c.get("graph.evictions", 0),
+            "capture_ns": c.get("graph.capture.ns", 0),
+            "replay_host": tracing.timed("graph.replay_host"),
+            "entries": entries}
 
 
 def clear() -> None:

@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import SlamConfig
 from ..types import Scan, SlamState, StepMetrics, resolve_device
 from ..ops.solve3 import det3
@@ -112,6 +113,7 @@ def update_phase(
     # rank of a beam group: all of them take this branch, or none, and
     # issue the update's collectives together
     if bool(do_update):   # the one host sync per scan
+        tracing.count("update.runs")
         new_log_odds, truncated = update_pyramid(
             state.log_odds, new_pose, scan, cfg, beam_axis, raster_backend)
         truncated = psum(truncated, beam_axis)
@@ -181,6 +183,7 @@ def update_phase_sync_free(
     device (``update_pyramid(..., sync_free=True)``). Bit-equal to
     ``update_phase``; the body of ``update_phase_jit``."""
     do_update = _gate(state, cfg, new_pose, map_without_matching)
+    tracing.count("update.runs")
     updated, truncated = update_pyramid(
         state.log_odds, new_pose, scan, cfg, None, raster_backend,
         sync_free=True)
@@ -319,10 +322,12 @@ def compiled_step(name: str, static_key, state: SlamState, inputs, step):
         new, metrics = step(st, *statics[5:])
         return _donate(st, new, write), metrics
 
-    graph = graphs.entry(name, static_key, maps, small + list(inputs), body)
-    graph.replay()
-    new, metrics = graph.outputs
-    return new, graphs.fresh(metrics)
+    with graphs.use(name):
+        graph = graphs.entry(name, static_key, maps, small + list(inputs),
+                             body)
+        graph.replay()
+        new, metrics = graph.outputs
+        return new, graphs.fresh(metrics)
 
 
 def slam_step_jit(state: SlamState, scan: Scan, cfg: SlamConfig,
@@ -429,11 +434,13 @@ def run_log_jit(state: SlamState, scans: Scan, cfg: SlamConfig):
                 out.index_copy_(0, at, x[None])
             t.add_(1)
 
-    graph = graphs.entry("run_log_jit", (cfg,), [],
-                         maps + small + list(scans) + [counter] + outs, body)
-    for _ in range(n_scans):
-        graph.replay()
-    final = graphs.fresh(state_from_leaves(graph.statics[:n_maps],
-                                           graph.statics[n_maps:n_in]))
-    poses, *metrics = graphs.fresh(tuple(graph.statics[n_in + 4:]))
+    with graphs.use("run_log_jit"):
+        graph = graphs.entry("run_log_jit", (cfg,), [],
+                             maps + small + list(scans) + [counter] + outs,
+                             body)
+        for _ in range(n_scans):
+            graph.replay()
+        final = graphs.fresh(state_from_leaves(graph.statics[:n_maps],
+                                               graph.statics[n_maps:n_in]))
+        poses, *metrics = graphs.fresh(tuple(graph.statics[n_in + 4:]))
     return final, poses, StepMetrics(*metrics)

@@ -30,6 +30,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from . import tracing
 from .config import SlamConfig
 from .core.grid import map_to_world
 from .core.pose2d import compose, invert
@@ -199,10 +200,14 @@ class SlamSession:
                        pose_hint=None, odom_pose=None
                        ) -> Optional[np.ndarray]:
         """Polar scan path (rosLaserScanToDataContainer)."""
-        scan = scan_from_ranges(np.asarray(ranges, np.float32),
-                                self.cfg.map.level_scale(0), self.laser,
-                                self.cfg.max_beams, device=self.device)
-        return self.process_scan(scan, stamp, pose_hint, odom_pose)
+        with tracing.Timer("session.scan", "hs.scan"):
+            with tracing.Timer("session.convert", "hs.convert") as conv:
+                scan = scan_from_ranges(np.asarray(ranges, np.float32),
+                                        self.cfg.map.level_scale(0),
+                                        self.laser, self.cfg.max_beams,
+                                        device=self.device)
+            return self._process(scan, conv.t1, stamp, pose_hint,
+                                 odom_pose)
 
     def process_points(self, points_base, stamp: float = 0.0,
                        pose_hint=None, origo=(0.0, 0.0),
@@ -214,19 +219,22 @@ class SlamSession:
         the squared-range window (:96-102,526), the behind-robot cull
         (x<0 points closer than sqrt(0.5) m, :528-530), and the z-band
         for 3D input (:534-539)."""
-        pts = np.asarray(points_base, np.float32)
-        dist_sqr = pts[:, 0] ** 2 + pts[:, 1] ** 2
-        keep = (dist_sqr > np.float32(min_dist) ** 2) \
-            & (dist_sqr < np.float32(max_dist) ** 2) \
-            & ~((pts[:, 0] < 0.0) & (dist_sqr < np.float32(0.5)))
-        pts = pts[keep]
-        if pts.shape[1] == 3:
-            keep = (pts[:, 2] > z_min) & (pts[:, 2] < z_max)
-            pts = pts[keep, :2]
-        scan = scan_from_points(pts, self.cfg.map.level_scale(0),
-                                self.cfg.max_beams, origo,
-                                device=self.device)
-        return self.process_scan(scan, stamp, pose_hint, odom_pose)
+        with tracing.Timer("session.scan", "hs.scan"):
+            with tracing.Timer("session.convert", "hs.convert") as conv:
+                pts = np.asarray(points_base, np.float32)
+                dist_sqr = pts[:, 0] ** 2 + pts[:, 1] ** 2
+                keep = (dist_sqr > np.float32(min_dist) ** 2) \
+                    & (dist_sqr < np.float32(max_dist) ** 2) \
+                    & ~((pts[:, 0] < 0.0) & (dist_sqr < np.float32(0.5)))
+                pts = pts[keep]
+                if pts.shape[1] == 3:
+                    keep = (pts[:, 2] > z_min) & (pts[:, 2] < z_max)
+                    pts = pts[keep, :2]
+                scan = scan_from_points(pts, self.cfg.map.level_scale(0),
+                                        self.cfg.max_beams, origo,
+                                        device=self.device)
+            return self._process(scan, conv.t1, stamp, pose_hint,
+                                 odom_pose)
 
     def _hint(self, pose_hint, odom_pose) -> Optional[torch.Tensor]:
         """Start estimate selection (:285-315): an explicit pose_hint
@@ -253,30 +261,40 @@ class SlamSession:
         ``odom_pose``: the robot's wheel-odometry pose at this scan's
         stamp; enables the odometry-propagated start estimate
         (``pose_hint_from_odom``)."""
+        with tracing.Timer("session.scan", "hs.scan") as root:
+            return self._process(scan, root.t0, stamp, pose_hint, odom_pose)
+
+    def _process(self, scan: Scan, t0: int, stamp, pose_hint, odom_pose
+                 ) -> Optional[np.ndarray]:
+        """``process_scan`` inside its ``hs.scan`` span; ``t0``: the clock
+        reading (``perf_counter_ns``) the scan's own time runs from."""
         if self.paused:
             return None
-        t0 = time.perf_counter()
         hint = self._hint(pose_hint, odom_pose)
         known = self.map_with_known_poses
         if self.timing_mode == "phases":
             new_pose, hessian = match_phase_jit(self.state, scan, self.cfg,
                                                 hint, known)
             new_pose.cpu()   # completion barrier for the phase
-            t1 = time.perf_counter()
+            t1 = time.perf_counter_ns()
             self.state, metrics = update_phase_jit(
                 self.state, scan, self.cfg, new_pose, hessian, known)
         else:
             self.state, metrics = slam_step_jit(self.state, scan, self.cfg,
                                                 hint, known)
         # pose, covariance and gate in one device->host copy
-        host = torch.cat([self.state.pose, self.state.covariance.reshape(9),
-                          metrics.map_updated.to(torch.float32).reshape(1)]
-                         ).cpu().numpy()
-        t2 = time.perf_counter()
+        with tracing.Timer("session.read", "hs.read") as read:
+            host = torch.cat([self.state.pose,
+                              self.state.covariance.reshape(9),
+                              metrics.map_updated.to(torch.float32)
+                              .reshape(1)]).cpu().numpy()
+        t2 = read.t1
         if self.timing_mode == "phases":
-            self._match_times_ms.append((t1 - t0) * 1e3)
-            self._update_times_ms.append((t2 - t1) * 1e3)
-        self._scan_times_ms.append((t2 - t0) * 1e3)
+            self._match_times_ms.append((t1 - t0) * 1e-6)
+            self._update_times_ms.append((t2 - t1) * 1e-6)
+        self._scan_times_ms.append((t2 - t0) * 1e-6)
+        if host[12] != 0.0:
+            tracing.count("update.gated")
         pose = host[:3].copy()
 
         self._last_scan = scan
@@ -626,7 +644,9 @@ class SlamSession:
         """A ``torch.profiler.profile`` context (SURVEY.md §5) that writes
         a trace of everything run inside to ``log_dir`` (Chrome trace
         JSON, readable by TensorBoard's profiler plugin), the card's
-        kernels included when the session is on it:
+        kernels included when the session is on it, and the port's spans
+        (``tracing``: each scan's ``hs.scan`` with its conversion, graph
+        use and read):
 
             with session.profile_trace("slam_trace"):
                 for r in ranges: session.process_ranges(r)
