@@ -41,8 +41,8 @@ the main path through the entry points a user calls:
      session B ("phases", 100 scans: match_phase_jit, update_phase_jit)
      bit-equal to A; A kidnapped by (+0.6 m, -0.5 m, +0.25 rad) and recovered by
      relocalize (n = 1024: "quad" through match_hypotheses_jit, then the
-     default "pallas" — prune, cascade_refine_jit, 14 moments launches a
-     replay) and relocalize_global (defaults: the 65,536-pose sweep
+     default "pallas" — prune, cascade_refine_jit, 3 launches of the
+     moments kernel's level form a replay, one a level) and relocalize_global (defaults: the 65,536-pose sweep
      through residual_for_poses_jit, then cascade_refine_jit), each
      within 0.1 m and 0.05 rad of the pose before the kidnap and held
      against the JAX session's results
@@ -71,8 +71,13 @@ the main path through the entry points a user calls:
      eager function; first-call and warm ms;
   6. batched matching — the bench.py workload: a map built with known
      poses, 4096 hypotheses (sigma 0.05) matched through
-     match_hypotheses_kernel (14 kernel launches per call), a
-     256-hypothesis subset held against the plain batched matcher;
+     match_hypotheses_kernel (3 launches of the kernel's level form a
+     call, its 14 GN steps inside), a 256-hypothesis subset held against
+     the plain batched matcher; at each level's inputs the level form
+     (level_ms: its one launch) bit-equal to gn_step_kernel's per-step
+     route, its estimates within LEVEL_EST_TOL of its plain loop (plain
+     ms beside) and its H within REL_TOL of the plain moments at its
+     last step's start, its bound the steps' moments and updates;
      then mxu: the same workload through match_hypotheses_mxu_jit, the
      theta-bucketed patch matcher (bench.py's bucket count): its first
      call and one replay on the path (14 moments launches each, 14 in
@@ -104,7 +109,7 @@ the main path through the entry points a user calls:
      (run_log, run_log_jit, run_log_jit, run_log) and 40 scans of each
      route under torch.profiler (device ms, device operations and host
      launch calls per scan); match_hypotheses_kernel_jit on the batched
-     workload (14 moments launches a replay) and match_hypotheses_jit
+     workload (3 level-form launches a replay) and match_hypotheses_jit
      on 256 of its hypotheses, ms per call in turns; fleet_step_jit and
      shared_fleet_step_jit over the fleet phases' steps (poses, gates,
      final states bit-equal; one paint launch a replay), robot-scans/s
@@ -210,6 +215,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 REL_TOL = 1e-5          # kernel vs plain, relative to max |moment| per hyp
+# level form vs its plain loop, final estimates (map cells for x, y; rad):
+# the moments' rounding (REL_TOL) carried through every step's solve
+LEVEL_EST_TOL = 1e-3
 RMSE_BUDGET_M = 0.005   # port vs JAX pose RMSE, 435-scan sequential replay
 SYNC_COUNT_SCANS = 100  # scans whose stream syncs are counted, per route
 FORCED_BUDGET = 4       # segments: every level takes the dense fallback
@@ -296,6 +304,10 @@ LONG_LINES = (("take_along (8,1024) ax1", (8, 1024), 1, None),
 #   nine moments, one FMA each                                 18
 OPS_PER_USED_QUERY = 53
 OPS_PER_OTHER_QUERY = 8   # a valid beam outside the map: the transform
+# f32 operations of one hypothesis's GN update in the level form: guard 2,
+# six cofactors 18, determinant 5, adjugate times the gradient 15, three
+# divisions 3, clamp 2, update 3 (sinf/cosf of the new angle uncounted)
+SOLVE_OPS = 48
 # Dependent-issue latencies, in SM cycles, of the probe kernels' loop-
 # carried chains: the Volta microbenchmark figures (Jia et al., "Dissecting
 # the NVIDIA Volta GPU Architecture via Microbenchmarking", 2018: 4 for an
@@ -380,6 +392,23 @@ def rel_err(a, b):
     diff = (ma - mb).abs().max(-1).values
     scale = mb.abs().max(-1).values.clamp(min=1e-30)
     return float((diff / scale).max()), float(diff.max())
+
+
+def level_err(got, want):
+    """The level form's (estimates, H) against another route's: the worst
+    estimate gap over x, y (map cells) and theta (rad), and the worst H gap
+    relative to that hypothesis's largest |H| entry. A NaN on one side
+    only counts as an infinite gap."""
+    def gap(a, b):
+        d = (a - b).abs()
+        one_nan = a.isnan() ^ b.isnan()
+        return torch.where(one_nan, torch.full_like(d, float("inf")),
+                           torch.nan_to_num(d, nan=0.0))
+    est = gap(got[0], want[0]).max()
+    hg, hw = got[1].reshape(-1, 9), want[1].reshape(-1, 9)
+    scale = torch.nan_to_num(hw.abs(), nan=0.0).max(-1).values
+    rel = gap(hg, hw).max(-1).values / scale.clamp(min=1e-30)
+    return float(est), float(rel.max())
 
 
 def kernel_bound_ms(quad, shape, poses_map, points, mask, used):
@@ -797,8 +826,8 @@ def phase_session(kernels, run_log_poses):
     B the first SESSION_PHASES_SCANS ("phases"); then A is kidnapped and
     recovered by relocalize ("quad", then the default "pallas": prune,
     cascade) and by relocalize_global, through the compiled routes
-    (match_hypotheses_jit, cascade_refine_jit: 14 moments launches a
-    replay, residual_for_poses_jit), each held against
+    (match_hypotheses_jit, cascade_refine_jit: 3 level-form launches of
+    the moments kernel a replay, residual_for_poses_jit), each held against
     tests/fixtures/session_jax_reference.npz; then the geotiff export.
     Off the path (after its counts are read): each recovery eagerly and
     graphed in turns, bit-equal; each compiled call against its eager
@@ -996,13 +1025,17 @@ def phase_session(kernels, run_log_poses):
         "quad_residual": abs(quad["residual"] - pallas["residual"])
         < QUAD_RESIDUAL_REL * max(pallas["residual"], 1.0),
         # first calls: each capture's warm-up and one replay; the
-        # cascade graphs launch the moments kernel 14 times a replay
+        # cascade graphs launch the moments kernel's level form once a
+        # level, 3 times a replay, and its moments-only form never
         "moments_launches": delta(2, "interp_moments") == 0
-        and delta(3, "interp_moments") == 2 * 14
-        and delta(5, "interp_moments") == 2 * 14
+        and delta(2, "interp_moments_level") == 0
+        and delta(3, "interp_moments_level") == 2 * 3
+        and delta(5, "interp_moments_level") == 2 * 3
+        and delta(3, "interp_moments") == delta(5, "interp_moments") == 0
         and len(cascades) == 2 and all(
-            g["per_replay"]["interp_moments"] == 14
-            and g["warmup"]["interp_moments"] == 14 for g in cascades),
+            g["per_replay"]["interp_moments_level"] == 3
+            and g["warmup"]["interp_moments_level"] == 3
+            and g["per_replay"]["interp_moments"] == 0 for g in cascades),
         "recovery_graphs": [(graph_delta(i, "captures"),
                              graph_delta(i, "replays"))
                             for i in (2, 3, 4, 5)]
@@ -1284,7 +1317,9 @@ def phase_batched(dev, kernels):
     from hector_slam_tpu_torch.io.simulator import (World, corridor_trajectory,
                                                     simulate_trajectory)
     from hector_slam_tpu_torch.ops.interp_moments import (
-        _launch, interp_moments, interp_moments_plain, prepare)
+        _launch, interp_moments, interp_moments_level,
+        interp_moments_level_plain, interp_moments_plain, prepare)
+    from hector_slam_tpu_torch.parallel.kernel_match import gn_step_kernel
     cfg = ht.BENCH_CONFIG
     laser = ht.LaserModel()
     poses_true = corridor_trajectory(10, advance=0.12, weave=0.03)
@@ -1326,7 +1361,10 @@ def phase_batched(dev, kernels):
 
     # the kernel at each level's inputs as the main path gives them (the
     # hypotheses entering the level's first GN step), beside its plain
-    # version and its bound
+    # version and its bound; then its level form, all of the level's GN
+    # steps in one launch: bit-equal to gn_step_kernel's per-step route
+    # (a moments-only launch, then the torch epilogue), beside its plain
+    # loop (interp_moments_level_plain on the card) and its bound
     levels, worst_abs = [], 0.0
     level_in = hyp
     for lvl in range(cfg.map.levels - 1, -1, -1):
@@ -1341,31 +1379,63 @@ def phase_batched(dev, kernels):
         worst_abs = max(worst_abs, abs_)
         t_bytes, t_ops = kernel_bound_ms(*args, p.used)
         bufs = prepare(*args)
+        gn_steps = (cfg.match.iterations_finest if lvl == 0
+                    else cfg.match.iterations_coarse) + 1
+        lk = interp_moments_level(*args, gn_steps)
+        se, sh = est, None
+        for _ in range(gn_steps):
+            last_start = se
+            se, sh = gn_step_kernel(*args[:2], se, *args[3:])
+        est_gap, loop_hess_rel = level_err(
+            lk, interp_moments_level_plain(*args, gn_steps))
+        # H is summed at the last step's start, and a gap there moves
+        # queries across cell edges, where the gradients jump: so H is held
+        # to the plain moments at the kernel's own last start
+        hess_rel = level_err(lk, (lk[0], interp_moments_plain(
+            *args[:2], last_start, *args[3:]).hess))[1]
         levels.append(dict(
-            level=lvl, shape=list(shape),
-            gn_steps=(cfg.match.iterations_finest if lvl == 0
-                      else cfg.match.iterations_coarse) + 1,
+            level=lvl, shape=list(shape), gn_steps=gn_steps,
             # the bare launch and the plain version (device times), and
             # the wrapper with its checks, sin/cos, allocation and
-            # assembly as a caller sees it (host-bound)
+            # assembly as a caller sees it (host-bound); the level form's
+            # one launch and its plain loop
             **device_times(
                 kernel_ms=(lambda: _launch(
                     *args[:3], *bufs[:2], *args[3:], bufs[2]), 50),
-                plain_ms=(lambda: interp_moments_plain(*args), 5)),
+                plain_ms=(lambda: interp_moments_plain(*args), 5),
+                level_ms=(lambda: interp_moments_level(*args, gn_steps),
+                          50),
+                level_plain_ms=(
+                    lambda: interp_moments_level_plain(*args, gn_steps), 3)),
             wrapper_ms=cuda_ms(lambda: interp_moments(*args), 20),
             bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
             bound_ms=max(t_bytes, t_ops), max_rel_err=rel,
-            max_abs_err=abs_, used_equal=bool(torch.equal(k.used, p.used))))
+            max_abs_err=abs_, used_equal=bool(torch.equal(k.used, p.used)),
+            # every step's moments bound (the kernel reads the grid anew
+            # each step) plus each hypothesis's update every step
+            level_bound_ms=gn_steps * (max(t_bytes, t_ops) + b * SOLVE_OPS
+                                       / F32_OPS_PER_S * 1e3),
+            level_bit_equal=bool(
+                torch.equal(lk[0].view(torch.int32), se.view(torch.int32))
+                and torch.equal(lk[1].view(torch.int32),
+                                sh.view(torch.int32))),
+            level_max_est_err=est_gap, level_max_hess_rel_err=hess_rel,
+            level_loop_hess_rel_err=loop_hess_rel))
         level_in = ht.match_hypotheses_kernel(
             state.log_odds, level_in, scan, cfg, quads=state.quads,
             max_level=lvl, min_level=lvl)[0].pose
-    ok = (launches["interp_moments"] == steps and pose.shape == (b, 3)
+    ok = (launches["interp_moments_level"] == cfg.map.levels
+          and launches["interp_moments"] == 0 and pose.shape == (b, 3)
           and np.isfinite(pose).all() and np.isfinite(plain).all()
           and p90 < 2e-3 and p99 < 5e-2
           and all(lv["used_equal"] and lv["max_rel_err"] <= REL_TOL
+                  and lv["level_bit_equal"]
+                  and lv["level_max_est_err"] <= LEVEL_EST_TOL
+                  and lv["level_max_hess_rel_err"] <= REL_TOL
                   for lv in levels))
     emit("batched_matching", ok=ok, hypotheses=b, kernel_launches=launches,
-         expected_launches=steps, ms_per_call=ms_call,
+         expected_level_launches=cfg.map.levels, gn_steps=steps,
+         ms_per_call=ms_call,
          matches_per_s=b / (ms_call / 1e3),
          fast_path_fraction=float(diag.fast_path_fraction()),
          subset_vs_plain_p50=p50, subset_vs_plain_p90=p90,
@@ -1616,7 +1686,9 @@ def phase_graphs(dev, kernels, sequential, hyp_inputs, fleet, shared):
         int((gates == ref["map_updated"]).sum()) == n == len(gates)
         and rmse < RMSE_BUDGET_M and np.isfinite(host_poses).all())
     checks["run_log_launches"] = (
-        seq_graph["per_replay"] == {"interp_moments": 0, "paint_cells": 1}
+        seq_graph["per_replay"] == {"interp_moments": 0,
+                                    "interp_moments_level": 0,
+                                    "paint_cells": 1}
         and g1["replays"] - g0["replays"] == n
         and g1["captures"] - g0["captures"] == 1
         and c1["paint_cells"] - c0["paint_cells"] == n + 1)
@@ -1691,7 +1763,7 @@ def phase_graphs(dev, kernels, sequential, hyp_inputs, fleet, shared):
     [kgraph] = stats_of("match_hypotheses_kernel_jit")
     [pgraph] = stats_of("match_hypotheses_jit")
     checks["kernel_route_launches"] = kgraph["per_replay"] == {
-        "interp_moments": 14, "paint_cells": 0}
+        "interp_moments": 0, "interp_moments_level": 3, "paint_cells": 0}
     out["batched"] = dict(
         hypotheses=hyp.shape[0], kernel_graph=kgraph, plain_graph=pgraph,
         plain_hypotheses=256, ms_per_call_in_call_order=[
@@ -1747,7 +1819,7 @@ def phase_graphs(dev, kernels, sequential, hyp_inputs, fleet, shared):
     paints["shared_fleet"] = read_counts(kernels)["paint_cells"] - marks
     for name in ("fleet", "shared_fleet"):
         checks[f"{name}_launches"] = out[name]["graph"]["per_replay"] == {
-            "interp_moments": 0, "paint_cells": 1}
+            "interp_moments": 0, "interp_moments_level": 0, "paint_cells": 1}
     launches = read_counts(kernels)
     graphs.clear()
     checks = {k: bool(v) for k, v in checks.items()}
@@ -2489,13 +2561,16 @@ def run_paths(dev):
     """Drives the main path's phases on ``dev`` and returns the kernels
     line's entries."""
     from hector_slam_tpu_torch.ops.dyn_slice import dyn_slice
-    from hector_slam_tpu_torch.ops.interp_moments import interp_moments
+    from hector_slam_tpu_torch.ops.interp_moments import (
+        interp_moments, interp_moments_level)
     from hector_slam_tpu_torch.ops.matmul_stationary import matmul_stationary
     from hector_slam_tpu_torch.ops.paint_cells import paint_cells
     from hector_slam_tpu_torch.ops.paint_runs import paint_runs
     from hector_slam_tpu_torch.ops.take_along import take_along
-    kernels = {"interp_moments": interp_moments, "paint_cells": paint_cells,
-               "take_along": take_along, "matmul_stationary": matmul_stationary,
+    kernels = {"interp_moments": interp_moments,
+               "interp_moments_level": interp_moments_level,
+               "paint_cells": paint_cells, "take_along": take_along,
+               "matmul_stationary": matmul_stationary,
                "dyn_slice": dyn_slice, "paint_runs": paint_runs}
     abs_kvp = phase_kernel_vs_plain(dev)
     paths, paint_inputs = {}, {}
@@ -2566,8 +2641,19 @@ def run_paths(dev):
         "replaces": "hector_slam_tpu/ops/pallas_interp.py:337",
         "launches": sum(by_path("interp_moments").values()),
         "launches_by_path": by_path("interp_moments"),
+        "level_launches": sum(by_path("interp_moments_level").values()),
+        "level_launches_by_path": by_path("interp_moments_level"),
         "max_abs_err": max(abs_kvp, abs_main),
         "ms": mean("kernel_ms"),
+        "level_ms": {lv["level"]: lv["level_ms"] for lv in levels},
+        "level_plain_ms": {lv["level"]: lv["level_plain_ms"]
+                           for lv in levels},
+        "level_bound_ms": {lv["level"]: lv["level_bound_ms"]
+                           for lv in levels},
+        "level_bit_equal": all(lv["level_bit_equal"] for lv in levels),
+        "level_max_est_err": max(lv["level_max_est_err"] for lv in levels),
+        "level_max_hess_rel_err": max(lv["level_max_hess_rel_err"]
+                                      for lv in levels),
         "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"),
         "bound_by": ("operations" if mean("bound_ops_ms")

@@ -63,11 +63,13 @@ from typing import Callable, Dict, List, NamedTuple, Sequence
 import torch
 
 from .. import tracing
-from ..ops.interp_moments import interp_moments
+from ..ops.interp_moments import interp_moments, interp_moments_level
 from ..ops.paint_cells import paint_cells
 
 MAX_GRAPHS = 8
-COUNTED = {"interp_moments": interp_moments, "paint_cells": paint_cells}
+COUNTED = {"interp_moments": interp_moments,
+           "interp_moments_level": interp_moments_level,
+           "paint_cells": paint_cells}
 
 
 class GraphStats(NamedTuple):

@@ -10,6 +10,12 @@ block in shared memory). ``interp_moments`` launches the kernel for CUDA
 tensors and runs ``interp_moments_plain`` only for CPU tensors; there is
 no fallback from one to the other.
 
+``interp_moments_level`` runs a whole pyramid level of the batched
+matcher: every GN step's moments, guard, solve, clamp and pose update in
+ONE launch of the kernel's level form, bit-equal to one ``interp_moments``
+launch a step with ``core/matcher.guarded_step`` between them (its plain
+loop on CPU tensors).
+
 The JAX module's granular repair (``_first_k_indices``,
 ``bad_query_corrections``, ``_moment_corrections``,
 ``hector_slam_tpu/ops/pallas_interp.py:439-531``) is plain tensor code
@@ -25,6 +31,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..core.interp import assemble_hessian, interp_quad, normal_eqs_quad
+from ..core.matcher import guarded_step
 from . import cuda_build
 
 _OUT = 10   # 9 moments + used count per hypothesis
@@ -49,7 +56,7 @@ def interp_moments_plain(
     return Moments(*normal_eqs_quad(quad, shape, poses_map, points, mask))
 
 
-def _check(quad, shape, poses_map, points, mask):
+def _check(quad, shape, poses_map, points, mask, what="interp_moments"):
     h, w = shape
     dev = quad.device
     for name, t, dtype, want in (
@@ -58,35 +65,39 @@ def _check(quad, shape, poses_map, points, mask):
             ("points", points, torch.float32, (points.shape[0], 2)),
             ("mask", mask, torch.bool, (points.shape[0],))):
         if t.device != dev:
-            raise ValueError(f"interp_moments: {name} is on {t.device}, "
+            raise ValueError(f"{what}: {name} is on {t.device}, "
                              f"quad on {dev}")
         if t.dtype != dtype:
-            raise TypeError(f"interp_moments: {name} must be {dtype}, "
+            raise TypeError(f"{what}: {name} must be {dtype}, "
                             f"got {t.dtype}")
         if tuple(t.shape) != want:
-            raise ValueError(f"interp_moments: {name} has shape "
+            raise ValueError(f"{what}: {name} has shape "
                              f"{tuple(t.shape)}, expected {want}")
         if not t.is_contiguous():
-            raise ValueError(f"interp_moments: {name} must be contiguous")
+            raise ValueError(f"{what}: {name} must be contiguous")
     if h < 2 or w < 2:
-        raise ValueError(f"interp_moments: grid {shape} is smaller than 2x2")
+        raise ValueError(f"{what}: grid {shape} is smaller than 2x2")
     if h * w > 2 ** 31 - 1:
-        raise ValueError(f"interp_moments: grid {shape} has more than "
+        raise ValueError(f"{what}: grid {shape} has more than "
                          "2^31 - 1 cells (the kernel indexes them as i32)")
     if points.shape[0] > MAX_POINTS:
-        raise ValueError(f"interp_moments: {points.shape[0]} beams, the "
+        raise ValueError(f"{what}: {points.shape[0]} beams, the "
                          f"kernel stages at most {MAX_POINTS}")
     if quad.data_ptr() % 16 or points.data_ptr() % 8:
-        raise ValueError("interp_moments: quad must be 16-byte and points "
+        raise ValueError(f"{what}: quad must be 16-byte and points "
                          "8-byte aligned")
 
 
-def _library():
-    lib = cuda_build.load("interp_moments")
-    fn = lib.hs_interp_moments
+# each C entry point's arguments: p a pointer (or the stream), i an int
+_ARGTYPES = {"hs_interp_moments": "piipppippipp",
+             "hs_interp_moments_level": "piipippiippp"}
+
+
+def _library(entry="hs_interp_moments"):
+    fn = getattr(cuda_build.load("interp_moments"), entry)
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, i, p, p, p, i, p, p, i, p, p]
+        fn.argtypes = [ctypes.c_void_p if k == "p" else ctypes.c_int
+                       for k in _ARGTYPES[entry]]
         fn.restype = ctypes.c_int
     return fn
 
@@ -139,6 +150,58 @@ def interp_moments(
 
 
 interp_moments.launches = 0   # kernel launches, for chip_smoke.py
+
+
+def interp_moments_level_plain(quad, shape, estimates_map, points, mask,
+                               steps: int):
+    """The level form's function in torch ops: ``steps`` GN steps, each
+    ``interp_moments_plain`` then ``guarded_step``."""
+    hess = None
+    for _ in range(steps):
+        mom = interp_moments_plain(quad, shape, estimates_map, points, mask)
+        estimates_map = guarded_step(estimates_map, mom.hess, mom.dtr)
+        hess = mom.hess
+    return estimates_map, hess
+
+
+def interp_moments_level(
+    quad: torch.Tensor,            # f32[H*W, 4] quad-packed prob grid
+    shape: Tuple[int, int],
+    estimates_map: torch.Tensor,   # f32[B, 3] map-frame start estimates
+    points: torch.Tensor,          # f32[N, 2] the level's beam endpoints
+    mask: torch.Tensor,            # bool[N]
+    steps: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``steps`` guarded GN steps of every hypothesis on one pyramid level.
+    Returns (estimates_map f32[B, 3] after the last step, hess f32[B, 3, 3]
+    summed at the last step's start estimate). CUDA tensors launch the
+    kernel's level form once (on the current stream) or raise; CPU tensors
+    run ``interp_moments_level_plain``. Both check their inputs as
+    ``interp_moments``' kernel route does."""
+    if int(steps) != steps or steps < 1:
+        raise ValueError(f"interp_moments_level: steps must be a positive "
+                         f"integer, got {steps}")
+    _check(quad, shape, estimates_map, points, mask, "interp_moments_level")
+    if quad.device.type == "cpu":
+        return interp_moments_level_plain(quad, shape, estimates_map, points,
+                                          mask, int(steps))
+    b = estimates_map.shape[0]
+    est = torch.empty((b, 3), dtype=torch.float32, device=quad.device)
+    hess = torch.empty((b, 3, 3), dtype=torch.float32, device=quad.device)
+    with torch.cuda.device(quad.device):
+        rc = _library("hs_interp_moments_level")(
+            quad.data_ptr(), shape[0], shape[1], estimates_map.data_ptr(), b,
+            points.data_ptr(), mask.data_ptr(), points.shape[0], int(steps),
+            est.data_ptr(), hess.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"interp_moments_level: kernel launch failed "
+                           f"with CUDA error {rc}")
+    interp_moments_level.launches += 1
+    return est, hess
+
+
+interp_moments_level.launches = 0   # level-form launches (core/graphs.py)
 
 
 # ---- the granular repair of a fast path's left-out queries -----------------

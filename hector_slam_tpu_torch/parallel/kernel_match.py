@@ -14,8 +14,12 @@ one does not:
   - hypothesis and beam padding: the kernel takes any B and N;
   - the window repair and budget fallback: no query leaves the kernel, so
     ``MatchDiag`` reports 0 slow, repaired and overflow counts.
-``match_hypotheses_kernel_jit`` replays the whole matcher, its 14 kernel
-launches and their torch-op epilogues, as one CUDA graph (core/graphs.py).
+Each pyramid level is ONE launch of the moments kernel's level form
+(``interp_moments_level``): every GN step's moments, guard, solve, clamp
+and pose update run inside it, bit-equal to ``gn_step_kernel`` applied
+step by step. ``match_hypotheses_kernel_jit`` replays the whole matcher,
+one kernel launch a level and the level transforms around them, as one
+CUDA graph (core/graphs.py).
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from ..core import graphs
 from ..core.grid import world_to_map_pose
 from ..core.matcher import (finish_level, guarded_step, level_points,
                             level_quad)
-from ..ops.interp_moments import interp_moments
+from ..ops.interp_moments import interp_moments, interp_moments_level
 
 
 class MatchDiag(NamedTuple):
@@ -57,7 +61,8 @@ def gn_step_kernel(quad: torch.Tensor, shape: Tuple[int, int],
     """One batched GN step (ScanMatcher.h:194-226 per hypothesis): kernel
     moments, then the guard, solve3 and dtheta clamp as torch ops
     (pallas_match.py:153-160). Returns (new_estimates f32[B,3],
-    hess f32[B,3,3])."""
+    hess f32[B,3,3]). The per-step reference the level form
+    (``interp_moments_level``) is held to."""
     mom = interp_moments(quad, shape, estimates_map, points, mask)
     return guarded_step(estimates_map, mom.hess, mom.dtr), mom.hess
 
@@ -96,8 +101,8 @@ def match_hypotheses_kernel(
         pts = level_points(scan.points, level).contiguous()
         offset = mcfg.top_left_offset
         est = world_to_map_pose(poses, offset, mcfg.level_scale(level))
-        for _ in range(iters + 1):
-            est, hess = gn_step_kernel(quad, shape, est, pts, mask)
+        est, hess = interp_moments_level(quad, shape, est, pts, mask,
+                                         iters + 1)
         steps += iters + 1
         world = finish_level(est, offset, mcfg.level_resolution(level))
         poses = torch.where(any_valid, world, poses)
@@ -120,10 +125,10 @@ def match_hypotheses_kernel_jit(
     """``match_hypotheses_kernel`` compiled: the counterpart of the JAX
     package's ``match_hypotheses_pallas_jit``
     (hector_slam_tpu/parallel/pallas_match.py:303). On the card a CUDA graph
-    of the whole matcher (every ``interp_moments`` launch and its GN
-    epilogue), captured once per (``cfg``, levels, whether ``quads`` are
-    given, shapes, the map's memory) and replayed with no host round
-    trip; the results are new tensors. On CPU tensors it runs eagerly."""
+    of the whole matcher (one ``interp_moments_level`` launch a level and
+    the level transforms around it), captured once per (``cfg``, levels,
+    whether ``quads`` are given, shapes, the map's memory) and replayed
+    with no host round trip; the results are new tensors. On CPU tensors it runs eagerly."""
     if not graphs.on_card(begin_poses):
         return match_hypotheses_kernel(log_odds_pyramid, begin_poses, scan,
                                        cfg, quads, max_level, min_level)

@@ -126,9 +126,9 @@ def cascade_refine(
     """Cascaded wide-spread refinement through ``match_hypotheses_kernel``:
     refine all hypotheses on the coarsest level only, re-select the best
     ``mid_top_k`` by the next finer level's residual (incumbent forced),
-    then run the remaining fine levels on that set: the moments kernel
-    launches (iterations + 1) times per level, 4 + (4 + 6) on
-    ``BENCH_CONFIG``'s three levels.
+    then run the remaining fine levels on that set: the moments kernel's
+    level form launches once a level ((iterations + 1) GN steps inside),
+    1 + (1 + 1) on ``BENCH_CONFIG``'s three levels.
 
     A group-aligned batch keeps whole groups of 128, then replaces each
     kept group's members that score worse than its 64th best, or lie
@@ -188,13 +188,14 @@ def cascade_refine_jit(
     """``cascade_refine`` compiled (the JAX package's
     ``cascade_refine_jit``, hector_slam_tpu/parallel/recovery.py:203-206):
     on the card ONE CUDA graph of both stages — the coarse
-    ``match_hypotheses_kernel`` (4 moments launches on ``BENCH_CONFIG``),
-    the group re-selection with its trust region, and the fine stages
-    (4 + 6 launches) — captured once per (``cfg``, whether ``quads`` are
-    given, ``mid_top_k``, ``beam_stride``, shapes, the map's memory) and
-    replayed with no host round trip. Its branches are decided on shapes
-    alone, so the body reads nothing on the host. Returns (MatchResult,
-    MatchDiag) as new tensors. On CPU tensors it runs eagerly.
+    ``match_hypotheses_kernel`` (one level launch of the moments kernel on
+    ``BENCH_CONFIG``), the group re-selection with its trust region, and
+    the fine stages (two level launches) — captured once per (``cfg``,
+    whether ``quads`` are given, ``mid_top_k``, ``beam_stride``, shapes,
+    the map's memory) and replayed with no host round trip. Its branches
+    are decided on shapes alone, so the body reads nothing on the host.
+    Returns (MatchResult, MatchDiag) as new tensors. On CPU tensors it
+    runs eagerly.
 
     JAX's static ``k_budget``, ``interpret`` and ``wr`` have no
     counterpart: they size and run the TPU kernel's windows, and the

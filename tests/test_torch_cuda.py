@@ -31,7 +31,8 @@ import torch
 
 import hector_slam_tpu_torch as ht
 from hector_slam_tpu_torch.core.interp import quad_pack
-from hector_slam_tpu_torch.io.simulator import World, simulate_trajectory
+from hector_slam_tpu_torch.io.simulator import (World, loop_trajectory,
+                                                simulate_trajectory)
 from hector_slam_tpu_torch.ops import interp_moments as im
 from hector_slam_tpu_torch.ops import dyn_slice as dsl
 from hector_slam_tpu_torch.ops import matmul_stationary as mms
@@ -111,8 +112,8 @@ def test_kernel_wrapper_rejects_bad_inputs_on_card(cuda_device):
 @pytest.mark.cuda
 def test_batched_match_through_kernel_on_card(cuda_device):
     """A small map built on the card with known poses; 64 hypotheses
-    matched through the kernel (one launch per GN step) and through the
-    plain batched matcher agree."""
+    matched through the kernel (one launch of its level form a level) and
+    through the plain batched matcher agree."""
     cfg = ht.SlamConfig(map=ht.MapConfig(resolution=0.05, size_x=256,
                                          size_y=256, levels=2),
                         max_ray_cells=256)
@@ -136,17 +137,150 @@ def test_batched_match_through_kernel_on_card(cuda_device):
         rng.normal(0, 0.03, (64, 2)), rng.normal(0, 0.02, 64)]).astype(
             np.float32)).to(cuda_device)
     before = im.interp_moments.launches
+    level0 = im.interp_moments_level.launches
     got, diag = ht.match_hypotheses_kernel(state.log_odds, hyp, scans[-1],
                                            cfg, quads=state.quads)
-    steps = (cfg.match.iterations_finest + 1) + (
-        cfg.match.iterations_coarse + 1)
-    assert im.interp_moments.launches == before + steps
+    # one launch of the level form a level, every GN step inside it
+    assert im.interp_moments_level.launches == level0 + cfg.map.levels
+    assert im.interp_moments.launches == before
     want = ht.match_pyramid(state.log_odds, hyp, scans[-1], cfg,
                             quads=state.quads)
     diff = (got.pose - want.pose).abs().max(-1).values.cpu().numpy()
     assert np.isfinite(got.pose.cpu().numpy()).all()
     assert np.percentile(diff, 90) < 2e-3
     assert float(diag.slow_queries) == 0.0
+
+
+def _bits_equal(a, b):
+    """Bit for bit, NaNs included (torch.equal counts no NaN equal)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+@pytest.fixture(scope="module")
+def tutorial_map():
+    """TUTORIAL_CONFIG's 2048^2, 2-level pyramid mapped on the card from the
+    first 10 simulated UTM-30LX scans of the four-room loop at their true
+    poses, the last scan, and 4,096 hypotheses about its pose (0.05 m,
+    0.05 rad)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    dev = torch.device("cuda")
+    cfg = ht.TUTORIAL_CONFIG
+    laser = ht.LaserModel()
+    poses = loop_trajectory(754)[:10]
+    ranges = simulate_trajectory(World.multi_room(), poses, laser,
+                                 range_noise_std=0.01)
+    scans = [ht.scan_from_ranges(r, cfg.map.level_scale(0), laser,
+                                 cfg.max_beams, device=dev) for r in ranges]
+    state = ht.init_state(cfg, device=dev)
+    for sc, pose in zip(scans, poses):
+        state, _ = ht.slam_step(state, sc, cfg, pose_hint=torch.from_numpy(
+            pose).to(dev), map_without_matching=True)
+    rng = np.random.default_rng(17)
+    hyp = (poses[-1] + rng.normal(0, 0.05, (4096, 3))).astype(np.float32)
+    return cfg, state, scans[-1], torch.from_numpy(hyp).to(dev)
+
+
+def _tutorial_level(cfg, state, scan, hyp, level):
+    """The level's grid, scan and map-frame start estimates: the
+    hypotheses, every fourth from the third moved to the map's left edge
+    (most beams leave the map; singular Hessians send some to NaN), and
+    the second on an unmapped patch (H = 0: the guard fails)."""
+    from hector_slam_tpu_torch.core.grid import world_to_map_pose
+    from hector_slam_tpu_torch.core.matcher import level_points
+    size = cfg.map.size_x >> level
+    est = world_to_map_pose(hyp, cfg.map.top_left_offset,
+                            cfg.map.level_scale(level)).contiguous()
+    est[2::4, 0] = 0.5
+    est[1, :2] = size - 40.0
+    return (state.quads[level].contiguous(), (size, size), est,
+            level_points(scan.points, level).contiguous(),
+            scan.mask.contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 7, 256, 4096])
+@pytest.mark.parametrize("level", [0, 1])
+@pytest.mark.parametrize("masked", [False, True])
+def test_level_form_bit_equal_to_step_route_on_card(tutorial_map, b, level,
+                                                    masked):
+    """interp_moments_level (one launch) against ``steps`` calls of
+    gn_step_kernel (a moments launch, then the torch epilogue) on the
+    card: the estimates and the last step's H bit for bit, on both levels
+    of a mapped tutorial-sized pyramid, with an all-masked scan, hypotheses
+    at the map's edge and one on an unmapped patch."""
+    from hector_slam_tpu_torch.parallel.kernel_match import gn_step_kernel
+    cfg, state, scan, hyp = tutorial_map
+    quad, shape, est, pts, mask = _tutorial_level(cfg, state, scan, hyp,
+                                                  level)
+    est = est[:b].contiguous()
+    if masked:
+        mask = torch.zeros_like(mask)
+    steps = (cfg.match.iterations_finest if level == 0
+             else cfg.match.iterations_coarse) + 1
+    mom0, lvl0 = im.interp_moments.launches, im.interp_moments_level.launches
+    got = im.interp_moments_level(quad, shape, est, pts, mask, steps)
+    assert im.interp_moments_level.launches == lvl0 + 1
+    assert im.interp_moments.launches == mom0
+    want, hess = est, None
+    for _ in range(steps):
+        want, hess = gn_step_kernel(quad, shape, want, pts, mask)
+    assert _bits_equal(got[0], want) and _bits_equal(got[1], hess)
+    again = im.interp_moments_level(quad, shape, est, pts, mask, steps)
+    assert _bits_equal(again[0], got[0]) and _bits_equal(again[1], got[1])
+    if masked:
+        assert torch.equal(got[0], est) and not got[1].any()
+        return
+    if b > 1:   # the unmapped patch
+        assert not got[1][1].any() and torch.equal(got[0][1], est[1])
+    if b == 4096:   # the hypotheses about the pose converge
+        assert bool(torch.isfinite(got[0][::4]).all())
+        assert float((got[0] != est)[::4].any(-1).float().mean()) > 0.99
+
+
+@pytest.mark.cuda
+def test_kernel_route_replay_launches_once_a_level_on_card(tutorial_map):
+    """One replay of match_hypotheses_kernel_jit launches the level form
+    once a level and the moments-only form never; its poses are bit-equal
+    to the eager matcher's and to the per-step route's."""
+    from hector_slam_tpu_torch.core import graphs
+    from hector_slam_tpu_torch.core.grid import world_to_map_pose
+    from hector_slam_tpu_torch.core.matcher import finish_level, level_points
+    from hector_slam_tpu_torch.parallel.kernel_match import gn_step_kernel
+    cfg, state, scan, hyp = tutorial_map
+    graphs.clear()
+    eager, _ = ht.match_hypotheses_kernel(state.log_odds, hyp, scan, cfg,
+                                          quads=state.quads)
+    ht.match_hypotheses_kernel_jit(state.log_odds, hyp, scan, cfg,
+                                   quads=state.quads)
+    [entry] = graphs.stats()
+    assert entry.per_replay == {"interp_moments": 0,
+                                "interp_moments_level": cfg.map.levels,
+                                "paint_cells": 0}
+    mom0, lvl0 = im.interp_moments.launches, im.interp_moments_level.launches
+    got, _ = ht.match_hypotheses_kernel_jit(state.log_odds, hyp, scan, cfg,
+                                            quads=state.quads)
+    torch.cuda.synchronize()
+    assert im.interp_moments_level.launches - lvl0 == cfg.map.levels
+    assert im.interp_moments.launches == mom0
+    assert _bits_equal(got.pose, eager.pose)
+    assert _bits_equal(got.hessian, eager.hessian)
+    poses = hyp
+    for level in range(cfg.map.levels - 1, -1, -1):
+        steps = (cfg.match.iterations_finest if level == 0
+                 else cfg.match.iterations_coarse) + 1
+        est = world_to_map_pose(poses, cfg.map.top_left_offset,
+                                cfg.map.level_scale(level))
+        pts = level_points(scan.points, level).contiguous()
+        for _ in range(steps):
+            est, hess = gn_step_kernel(state.quads[level],
+                                       tuple(state.log_odds[level].shape),
+                                       est, pts, scan.mask.contiguous())
+        poses = finish_level(est, cfg.map.top_left_offset,
+                             cfg.map.level_resolution(level))
+    assert _bits_equal(got.pose, poses) and _bits_equal(got.hessian, hess)
+    graphs.clear()
 
 
 @pytest.mark.cuda
@@ -701,8 +835,8 @@ def test_recovery_selection_on_card_matches_cpu(cuda_device):
 @pytest.mark.cuda
 def test_session_relocalize_on_card_matches_cpu(cuda_device):
     """A kidnapped session on the card recovers through the moments kernel
-    (prune, then cascade_refine_jit's graph: 4 + 6 launches on two
-    levels, counted once more in its first call's warm-up) as the same
+    (prune, then cascade_refine_jit's graph: one launch of the level form
+    on each of two levels, counted once more in its first call's warm-up) as the same
     session on the CPU does through the kernel's plain version: the same
     acceptance, winners within 5 mm and 0.005 rad."""
     from hector_slam_tpu_torch.io.simulator import corridor_trajectory
@@ -733,9 +867,12 @@ def test_session_relocalize_on_card_matches_cpu(cuda_device):
     kw = dict(n_hypotheses=1024, sigma_xy=0.6, sigma_theta=0.3, seed=3,
               method="pallas")
     before = im.interp_moments.launches
+    level0 = im.interp_moments_level.launches
     got = card.relocalize(**kw)
-    # cascade_refine_jit's first call: its warm-up and one replay
-    assert im.interp_moments.launches - before == 10 + 10
+    # cascade_refine_jit's first call: its warm-up and one replay, each one
+    # level launch for each of the two levels
+    assert im.interp_moments_level.launches - level0 == 2 + 2
+    assert im.interp_moments.launches == before
     want = cpu.relocalize(scan=ht.scan_from_ranges(
         ranges[-1], cfg.map.level_scale(0), laser, cfg.max_beams,
         device="cpu"), **kw)
@@ -919,26 +1056,32 @@ def test_graph_launch_counts_add_up_per_replay_on_card(cuda_device):
     """The kernel wrappers' counters count a graph's warm-up once and its
     captured launches at every replay: slam_step_jit paints once a scan
     (the update runs on every scan), match_hypotheses_kernel_jit launches
-    the moments kernel 14 times a call at BENCH_CONFIG."""
+    the moments kernel's level form 3 times a call at BENCH_CONFIG (once a
+    level, its 14 GN steps inside) and the moments-only form never."""
     from hector_slam_tpu_torch.core import graphs
     cfg = ht.BENCH_CONFIG
     _, scans = _fixture_scans(cuda_device, 10)
     graphs.clear()
     paint0, mom0 = pc.paint_cells.launches, im.interp_moments.launches
+    level0 = im.interp_moments_level.launches
     state = ht.init_state(cfg, device=cuda_device)
     for sc in scans:
         state, _ = ht.slam_step_jit(state, sc, cfg)
     [step] = graphs.stats()
-    assert step.per_replay == {"interp_moments": 0, "paint_cells": 1}
-    assert step.warmup == {"interp_moments": 0, "paint_cells": 1}
+    assert step.per_replay == {"interp_moments": 0,
+                               "interp_moments_level": 0, "paint_cells": 1}
+    assert step.warmup == {"interp_moments": 0, "interp_moments_level": 0,
+                           "paint_cells": 1}
     assert step.replays == 10 and step.pool_bytes > 0
     assert pc.paint_cells.launches - paint0 == 1 + 10
     hyp = state.pose + torch.zeros((256, 3), device=cuda_device)
     for _ in range(3):
         ht.match_hypotheses_kernel_jit(state.log_odds, hyp, scans[-1], cfg,
                                        quads=state.quads)
-    assert graphs.stats()[-1].per_replay["interp_moments"] == 14
-    assert im.interp_moments.launches - mom0 == 14 + 3 * 14
+    assert graphs.stats()[-1].per_replay["interp_moments_level"] == 3
+    assert graphs.stats()[-1].per_replay["interp_moments"] == 0
+    assert im.interp_moments_level.launches - level0 == 3 + 3 * 3
+    assert im.interp_moments.launches == mom0
     assert pc.paint_cells.launches - paint0 == 11
 
 
@@ -970,7 +1113,8 @@ def _kidnap_inputs(dev, n=1024, seed=3):
 
 @pytest.mark.cuda
 def test_recovery_graphs_bit_equal_to_eager_on_card(cuda_device):
-    """cascade_refine_jit (one graph: 4 + 4 + 6 moments launches a replay)
+    """cascade_refine_jit (one graph: three launches of the moments
+    kernel's level form a replay, one a level)
     and residual_for_poses_jit (level 0 with the full scan, level 2 with
     the sweep's 8-strided one, each with and without the quads) on the card:
     bit-equal to their eager bodies, and their replays make no stream
@@ -982,6 +1126,7 @@ def test_recovery_graphs_bit_equal_to_eager_on_card(cuda_device):
     state, scan, hyp = _kidnap_inputs(cuda_device)
     graphs.clear()
     mom0 = im.interp_moments.launches
+    level0 = im.interp_moments_level.launches
     want = rec.cascade_refine(state.log_odds, hyp, scan, cfg,
                               quads=state.quads)
     got = rec.cascade_refine_jit(state.log_odds, hyp, scan, cfg,
@@ -989,8 +1134,11 @@ def test_recovery_graphs_bit_equal_to_eager_on_card(cuda_device):
     assert all(torch.equal(a, b) for a, b in zip(want[0] + want[1],
                                                  got[0] + got[1]))
     [cascade] = graphs.stats()
-    assert cascade.per_replay["interp_moments"] == 14
-    assert im.interp_moments.launches - mom0 == 14 * 3   # eager, warm-up, 1
+    assert cascade.per_replay["interp_moments_level"] == 3
+    assert cascade.per_replay["interp_moments"] == 0
+    # eager, warm-up, one replay
+    assert im.interp_moments_level.launches - level0 == 3 * 3
+    assert im.interp_moments.launches == mom0
     sub = ht.Scan(scan.points[::8], scan.origo, scan.mask[::8])
     calls = []
     for level, sc in ((0, scan), (2, sub)):

@@ -21,6 +21,7 @@ import hector_slam_tpu_torch as ht
 from hector_slam_tpu_torch.ops import interp_moments as im
 from hector_slam_tpu_torch.parallel.kernel_match import (
     gn_step_kernel, match_hypotheses_kernel)
+from test_torch_cuda import _bits_equal
 
 H = W = 256
 
@@ -150,3 +151,120 @@ def test_gn_step_kernel_is_batched_gn_step(mapped):
                                    atol=1e-4)
         np.testing.assert_allclose(hess[i].numpy(), h1.numpy(), rtol=1e-5,
                                    atol=1e-3)
+
+
+def _level_world(tcfg, hyp, level):
+    """The hypotheses as world poses, the last one moved onto an unmapped
+    patch of ``level`` (every gradient and so H is 0: the guard fails)."""
+    from hector_slam_tpu_torch.core.grid import world_to_map_pose
+    from hector_slam_tpu_torch.core.matcher import finish_level
+    est = world_to_map_pose(torch.from_numpy(hyp), tcfg.map.top_left_offset,
+                            tcfg.map.level_scale(level))
+    size = H >> level
+    est[-1, :2] = torch.tensor([size - 6.0, size - 6.0])
+    return finish_level(est, tcfg.map.top_left_offset,
+                        tcfg.map.level_resolution(level))
+
+
+def _level_inputs(tcfg, tstate, tscan, hyp, level):
+    """The level's grid, its scan and the map-frame start estimates of
+    ``_level_world``'s poses."""
+    from hector_slam_tpu_torch.core.grid import world_to_map_pose
+    from hector_slam_tpu_torch.core.matcher import level_points
+    est = world_to_map_pose(_level_world(tcfg, hyp, level),
+                            tcfg.map.top_left_offset,
+                            tcfg.map.level_scale(level)).contiguous()
+    return (tstate.quads[level], (H >> level, W >> level), est,
+            level_points(tscan.points, level).contiguous(),
+            tscan.mask.contiguous())
+
+
+@pytest.mark.parametrize("level", [0, 1])
+@pytest.mark.parametrize("masked", ["none", "every_third", "all"])
+def test_level_form_matches_pallas_driver(mapped, level, masked):
+    """One pyramid level through interp_moments_level (its plain loop on
+    the CPU) against JAX's Pallas driver run on that level alone, with one
+    hypothesis on an unmapped patch and beams masked off. The plain loop
+    is also the per-step route, gn_step_kernel, step for step, bit for
+    bit. (Hypotheses at the map's edge are held bit-equal on the card;
+    their ill-conditioned steps amplify any change of summation order, so
+    JAX's driver, which sums in another order, is no bar for them.)"""
+    from hector_slam_tpu_torch.core.matcher import finish_level
+    jcfg, tcfg, jstate, jscan, tstate, tscan, hyp = mapped
+    quad, shape, est, pts, mask = _level_inputs(tcfg, tstate, tscan, hyp,
+                                                level)
+    if masked == "every_third":
+        mask = mask.clone()
+        mask[::3] = False
+    elif masked == "all":
+        mask = torch.zeros_like(mask)
+    world = _level_world(tcfg, hyp, level)
+    jres, _ = match_hypotheses_pallas(
+        jstate.log_odds, jnp.asarray(world.numpy()),
+        jscan._replace(mask=jnp.asarray(mask.numpy())), jcfg, s_per=128,
+        interpret=True, quads=jstate.quads, max_level=level,
+        min_level=level)
+    steps = (tcfg.match.iterations_finest if level == 0
+             else tcfg.match.iterations_coarse) + 1
+    before = im.interp_moments_level.launches
+    got = im.interp_moments_level(quad, shape, est, pts, mask, steps)
+    assert im.interp_moments_level.launches == before   # CPU: no launch
+    want, hess = est, None
+    for _ in range(steps):
+        want, hess = gn_step_kernel(quad, shape, want, pts, mask)
+    assert _bits_equal(got[0], want) and _bits_equal(got[1], hess)
+    pose = finish_level(got[0], tcfg.map.top_left_offset,
+                        tcfg.map.level_resolution(level)).numpy()
+    jpose = np.asarray(jres.pose)
+    assert (np.isnan(pose) == np.isnan(jpose)).all()
+    err = np.nan_to_num(np.abs(pose - jpose)).max()
+    assert err < 2e-3, err
+    # the unmapped patch: H = 0, the guard fails, the estimate stays
+    assert not got[1][-1].any() and torch.equal(got[0][-1], est[-1])
+    if masked == "all":
+        assert torch.equal(got[0], est) and not got[1].any()
+    else:   # the hypotheses about the pose move
+        assert bool((got[0][:-1] != est[:-1]).any(-1).all())
+
+
+_FAULTS = {
+    "dtype": (TypeError, lambda a: a.update(est=a["est"].double())),
+    "shape": (ValueError, lambda a: a.update(est=a["est"][:, :2])),
+    "contiguous": (ValueError, lambda a: a.update(
+        pts=a["pts"].t().contiguous().t())),
+    "mask_dtype": (TypeError, lambda a: a.update(mask=a["mask"].float())),
+    "mask_length": (ValueError, lambda a: a.update(mask=a["mask"][1:])),
+    "quad_shape": (ValueError, lambda a: a.update(shape=(H, W + 2))),
+    "tiny_grid": (ValueError, lambda a: a.update(
+        quad=a["quad"][:1].contiguous(), shape=(1, 1))),
+    "too_many_beams": (ValueError, lambda a: a.update(
+        pts=torch.zeros((im.MAX_POINTS + 1, 2)),
+        mask=torch.ones(im.MAX_POINTS + 1, dtype=torch.bool))),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(_FAULTS))
+def test_level_input_checks_raise_as_interp_moments(mapped, fault):
+    """The level form checks its inputs as interp_moments' kernel route
+    does (prepare: the same exception and message, under its own name),
+    on the CPU too."""
+    _, tcfg, _, _, tstate, tscan, hyp = mapped
+    quad, shape, est, pts, mask = _level_inputs(tcfg, tstate, tscan, hyp, 0)
+    args = dict(quad=quad, shape=shape, est=est, pts=pts, mask=mask)
+    err, fault_fn = _FAULTS[fault]
+    fault_fn(args)
+    order = ("quad", "shape", "est", "pts", "mask")
+    with pytest.raises(err, match="^interp_moments: ") as want:
+        im.prepare(*(args[k] for k in order))
+    with pytest.raises(err, match="^interp_moments_level: ") as got:
+        im.interp_moments_level(*(args[k] for k in order), 4)
+    assert str(got.value) == str(want.value).replace(
+        "interp_moments:", "interp_moments_level:", 1)
+
+
+@pytest.mark.parametrize("steps", [0, -1, 2.5])
+def test_level_steps_must_be_positive(mapped, steps):
+    _, tcfg, _, _, tstate, tscan, hyp = mapped
+    with pytest.raises(ValueError, match="steps"):
+        im.interp_moments_level(*_level_inputs(tcfg, tstate, tscan, hyp, 0),
+                                steps)
