@@ -51,6 +51,7 @@ from .parallel.shared_map import (init_shared_fleet, shared_fleet_step,
 from .query.raycast import (distance_to_obstacle, distance_to_obstacle_batch,
                             get_distance_to_obstacle, get_normal,
                             get_search_position)
+from .fleet_session import FleetSession
 from .session import SlamSession
 from .types import MatchResult, Scan, SlamState, StepMetrics
 
@@ -83,6 +84,7 @@ __all__ = [
     "match_hypotheses_mxu", "match_hypotheses_mxu_jit",
     "match_hypotheses_pallas", "match_hypotheses_pallas_jit",
     "auto_prune_top_k", "prune_hypotheses_coarse", "SlamSession",
+    "FleetSession",
     "distance_to_obstacle", "distance_to_obstacle_batch",
     "get_distance_to_obstacle", "get_normal", "get_search_position",
     "MatchResult", "Scan", "SlamState", "StepMetrics",

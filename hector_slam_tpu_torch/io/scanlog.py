@@ -57,6 +57,50 @@ def scan_from_ranges(
     return _pad(pts, origo, max_beams, dev)
 
 
+def beam_directions(laser: LaserModel, num_beams: int,
+                    device="cuda") -> torch.Tensor:
+    """f32[num_beams, 2]: (cos, sin) of the laser's first ``num_beams``
+    beam angles, computed by numpy as ``scan_from_ranges`` computes them,
+    on ``device``: the constant that ``scans_from_ranges`` takes."""
+    ang = laser.angles[:num_beams]
+    return torch.from_numpy(np.stack([np.cos(ang), np.sin(ang)], -1)
+                            .astype(np.float32)).to(resolve_device(device))
+
+
+def scans_from_ranges(
+    ranges: torch.Tensor,
+    directions: torch.Tensor,
+    scale_to_map: float,
+    laser: LaserModel = LaserModel(),
+    max_beams: int = 1152,
+) -> Scan:
+    """``scan_from_ranges`` of R scans at once on the ranges' device, with
+    no host read: ranges f32[R, B] and ``beam_directions(laser, B)`` in, a
+    Scan with points [R, max_beams, 2], origo [R, 2] and mask
+    [R, max_beams] out, each robot's bit-equal to ``scan_from_ranges`` of
+    its row. The kept beams move to the front in beam order by a
+    scatter through their running count (the beams left out go behind
+    them and are zeroed), so the result needs no count on the host; a
+    scan of more than ``max_beams`` beams is refused by its width."""
+    r_count, b = ranges.shape
+    if b > max_beams:
+        raise ValueError(f"scans have {b} beams > max_beams={max_beams}")
+    keep = (ranges > np.float32(laser.range_min)) \
+        & (ranges < np.float32(laser.range_max - 0.1))
+    pts = directions * (ranges * np.float32(scale_to_map))[..., None]
+    kept = torch.cumsum(keep, -1)
+    beam = torch.arange(b, device=ranges.device)
+    dest = torch.where(keep, kept - 1, kept[:, -1:] + beam - kept)
+    out = torch.zeros((r_count, max_beams, 2), dtype=torch.float32,
+                      device=ranges.device)
+    out.scatter_(1, dest[..., None].expand(r_count, b, 2), pts)
+    mask = torch.arange(max_beams, device=ranges.device) < kept[:, -1:]
+    return Scan(points=torch.where(mask[..., None], out, 0.0),
+                origo=torch.zeros((r_count, 2), dtype=torch.float32,
+                                  device=ranges.device),
+                mask=mask)
+
+
 def scan_from_points(
     points_base: np.ndarray,
     scale_to_map: float,

@@ -15,6 +15,10 @@ same host thread:
       hs.graph.replay      the host side of ``CUDAGraph.replay``
       hs.graph.outputs     fresh copies of the graph's outputs
     hs.read                the pose, covariance and gate to the host
+  hs.fleet                 one tick of a fleet through ``FleetSession``
+    hs.fleet.convert       the R robots' ranges to one ``Scan``
+    hs.graph:fleet_step_jit
+    hs.fleet.read          the R poses and gates to the host
 
 Counters: plain ints since import, read with ``counters()``. An event
 count always counts. A timed counter (``Timer``) adds the host time of
@@ -30,6 +34,9 @@ capture (``captured``), which is timed under ``graph.capture`` alone.
   graph.evictions                               graphs the cache dropped
   update.runs                                   map update bodies run
   update.gated                                  scans whose gate fired
+  fleet.step, fleet.convert, fleet.read         timed, per fleet tick
+  fleet.robot_steps                             robot-scans of the ticks
+  fleet.gated                                   robot-scans whose gate fired
 """
 
 from __future__ import annotations

@@ -98,6 +98,8 @@ def test_jax_only_names_are_the_documented_not_ported_list():
                  "shard_hypotheses"):
         assert callable(getattr(sharded, name)), name
     assert all(hasattr(ht, name) for name in ht.__all__)
+    # the port's own front end of a fleet: no JAX name, in the port's list
+    assert "FleetSession" in ht.__all__ and "FleetSession" not in hs.__all__
 
 
 def test_every_kernel_source_has_a_counted_wrapper():
@@ -137,6 +139,8 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_card,
         ht.init_fleet(cfg, 3)
     with pytest.raises(RuntimeError, match="cuda"):
         ht.init_shared_fleet(cfg, 3)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ht.FleetSession(cfg, robots=3)
     with pytest.raises(RuntimeError, match="cuda"):
         ht.fleet_state_from_numpy(
             [np.zeros((3, 64, 64)), np.zeros((3, 32, 32))], np.zeros((3, 3)),
