@@ -128,7 +128,13 @@ the main path through the entry points a user calls:
      exactly equal to the plain version's, two launches bit-identical,
      and the update's time as one call (one fill, one launch) and as six
      one-set calls, beside the plain version's, index_put_'s and the
-     bytes bound;
+     bytes bound; then map tail — the map update's tail kernel pair
+     (ops/map_tail.py) at fleet40's inputs (8 tutorial pyramids, one gate
+     a robot) and live40's (one pyramid): each cell model bit-equal to
+     its plain version and to the chain it replaced, with 1 and 8 of 8
+     robots gated; the log-odds pair's time with 0, 1 and 8 gated (one
+     map: 0 and 1) beside the bytes bound, the plain version's and the
+     chain's;
  11. probes — the cost probes of tools/probe_pallas.py and
      tools/probe_mosaic_store.py at their own shapes, driven through
      hector_slam_tpu_torch.probes (take_along over 64 [8,128] tiles on both
@@ -204,6 +210,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -280,6 +287,10 @@ F32_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12
 OPS_PER_S = {"f32": F32_OPS_PER_S, "bf16": BF16_TENSOR_OPS_PER_S}
 MM_ULPS = 2   # matmul_stationary vs plain, bf16 ulps (tests/test_torch_cuda.py)
+# the map tail's timed inputs: shares of a map's cells one scan paints
+# free and occupied (a UTM-30LX scan in a 12 m room on a 2048^2 map at
+# 0.05 m: ~1,081 beams of ~60 cells)
+TAIL_FREE_SHARE, TAIL_OCC_SHARE = 0.015, 0.0003
 # a rep count where every value of the matmul probe's chain is denormal and
 # 3-6 smallest-denormal steps above 0 (tests/test_torch_cuda.py), and one
 # just before the chain leaves the normal range, for a per-rep time over
@@ -1688,7 +1699,7 @@ def phase_graphs(dev, kernels, sequential, hyp_inputs, fleet, shared):
     checks["run_log_launches"] = (
         seq_graph["per_replay"] == {"interp_moments": 0,
                                     "interp_moments_level": 0,
-                                    "paint_cells": 1}
+                                    "paint_cells": 1, "map_tail": 2}
         and g1["replays"] - g0["replays"] == n
         and g1["captures"] - g0["captures"] == 1
         and c1["paint_cells"] - c0["paint_cells"] == n + 1)
@@ -1763,7 +1774,8 @@ def phase_graphs(dev, kernels, sequential, hyp_inputs, fleet, shared):
     [kgraph] = stats_of("match_hypotheses_kernel_jit")
     [pgraph] = stats_of("match_hypotheses_jit")
     checks["kernel_route_launches"] = kgraph["per_replay"] == {
-        "interp_moments": 0, "interp_moments_level": 3, "paint_cells": 0}
+        "interp_moments": 0, "interp_moments_level": 3, "paint_cells": 0,
+        "map_tail": 0}
     out["batched"] = dict(
         hypotheses=hyp.shape[0], kernel_graph=kgraph, plain_graph=pgraph,
         plain_hypotheses=256, ms_per_call_in_call_order=[
@@ -1819,7 +1831,8 @@ def phase_graphs(dev, kernels, sequential, hyp_inputs, fleet, shared):
     paints["shared_fleet"] = read_counts(kernels)["paint_cells"] - marks
     for name in ("fleet", "shared_fleet"):
         checks[f"{name}_launches"] = out[name]["graph"]["per_replay"] == {
-            "interp_moments": 0, "interp_moments_level": 0, "paint_cells": 1}
+            "interp_moments": 0, "interp_moments_level": 0, "paint_cells": 1,
+            "map_tail": 2}
     launches = read_counts(kernels)
     graphs.clear()
     checks = {k: bool(v) for k, v in checks.items()}
@@ -1961,6 +1974,138 @@ def phase_paint(dev, inputs):
     if not ok:
         raise SystemExit("paint_cells disagrees with its plain version")
     return rows, mismatched
+
+
+def tail_fixture(dev, robots, model, free_share, occ_share, seed=11):
+    """The map tail's inputs at the tutorial launch's widths (2048^2 and
+    1024^2 levels) for ``robots`` per-robot maps (None: one map), with
+    painted cell sets of about a scan's density, their quads packed."""
+    import hector_slam_tpu_torch as ht
+    from hector_slam_tpu_torch.core.slam import quads_of
+    cfg = ht.TUTORIAL_CONFIG
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    lead = () if robots is None else (robots,)
+    chan = (2,) if model == "reflectance" else ()
+    shapes = [(cfg.map.size_y >> k, cfg.map.size_x >> k)
+              for k in range(cfg.map.levels)]
+    levels = tuple((torch.rand(lead + chan + hw, generator=gen, device=dev)
+                    - 0.5) * 4.0 for hw in shapes)
+    if model != "log_odds":
+        levels = tuple(lv.abs().floor() / 4.0 for lv in levels)
+    sets = [(torch.rand(lead + hw, generator=gen, device=dev) < free_share,
+             torch.rand(lead + hw, generator=gen, device=dev) < occ_share)
+            for hw in shapes]
+    return levels, quads_of(levels, model), sets
+
+
+def phase_map_tail(dev):
+    """The map tail (ops/map_tail.py) at fleet40's inputs (8 tutorial
+    pyramids, one gate a robot) and live40's (one pyramid, one gate):
+    each cell model's kernel pair bit-equal to the plain version and to
+    the chain it replaced (apply_update, the gate's select, quads_of), at
+    1 and 8 of 8 robots gated and at one gated map; then, for the
+    log-odds model at TAIL_FREE_SHARE / TAIL_OCC_SHARE of the cells
+    painted, the kernel pair's device time with 0, 1 and 8 robots gated
+    (one map: gated and not), the plain version's, the chain's with the
+    write-back copy a donating step made (the same whatever the gates),
+    and the bytes bound: a gated cell's storage (4 B a channel) and cell
+    sets (2 B) read once, its quad (16 B) written, and 4 B a changed
+    cell written; an ungated map's gate reads not counted."""
+    import hector_slam_tpu_torch as ht
+    from hector_slam_tpu_torch.core import cell_models as cm
+    from hector_slam_tpu_torch.core.slam import quads_of
+    from hector_slam_tpu_torch.ops.map_tail import map_tail, map_tail_plain
+    upd = ht.TUTORIAL_CONFIG.update
+    lf, lo = upd.log_odds_free, upd.log_odds_occupied
+
+    def gate_of(robots, gated):
+        if robots is None:
+            return torch.tensor(bool(gated), device=dev)
+        g = torch.zeros(robots, dtype=torch.bool, device=dev)
+        g[:gated] = True
+        return g
+
+    def chain(levels, sets, gate, model, into=None):
+        new = []
+        for lv, (free_set, occ_set) in zip(levels, sets):
+            u = cm.apply_update(lv, free_set & ~occ_set, occ_set, model,
+                                lf, lo)
+            g = gate if gate.dim() == 0 else gate.reshape(
+                (-1,) + (1,) * (lv.dim() - 1))
+            new.append(torch.where(g, u, lv))
+        quads = quads_of(new, model)
+        if into is not None:   # the donating step's write-back
+            for dst, src in zip(into, list(new) + list(quads)):
+                dst.copy_(src)
+        return tuple(new), quads
+
+    def abs_err(a, b):
+        """The largest |a - b|, a NaN on either side counted as inf."""
+        return float(torch.nan_to_num((a.double() - b.double()).abs(),
+                                      nan=math.inf).max())
+
+    checks, rows, max_err = {}, [], 0.0
+    for model in ("log_odds", "simple_count", "reflectance"):
+        for robots, gated in ((8, 1), (8, 8), (None, 1)):
+            levels, quads, sets = tail_fixture(dev, robots, model, 0.33, 0.1)
+            gate = gate_of(robots, gated)
+            want = chain(levels, sets, gate, model)
+            plain = ([t.clone() for t in levels], [t.clone() for t in quads])
+            map_tail_plain(*plain, sets, gate, model, lf, lo)
+            map_tail(levels, quads, sets, gate, model, lf, lo)
+            torch.cuda.synchronize()
+            checks[f"{model}_{robots or 1}_{gated}_bit_equal"] = all(
+                torch.equal(a.view(torch.int32), b.view(torch.int32))
+                and torch.equal(a.view(torch.int32), c.view(torch.int32))
+                for a, b, c in zip(levels + quads, plain[0] + plain[1],
+                                   want[0] + want[1]))
+            max_err = max([max_err] + [
+                abs_err(a, b) for a, b in zip(
+                    levels + quads + levels + quads,
+                    plain[0] + plain[1] + list(want[0]) + list(want[1]))])
+            del levels, quads, sets, plain, want
+    torch.cuda.empty_cache()
+    for cell, robots, counts in (("fleet40", 8, (0, 1, 8)),
+                                 ("live40", None, (0, 1))):
+        levels, quads, sets = tail_fixture(dev, robots, "log_odds",
+                                           TAIL_FREE_SHARE, TAIL_OCC_SHARE)
+        maps = 1 if robots is None else robots
+        cells = sum(lv[0].numel() if robots else lv.numel() for lv in levels)
+        once = [t.clone() for t in levels]
+        map_tail(once, [q.clone() for q in quads], sets,
+                 gate_of(robots, maps), "log_odds", lf, lo)
+        changed = sum(int((a != b).sum()) for a, b in zip(once, levels))
+        del once
+        row = dict(cell=cell, maps=maps, cells_a_map=cells,
+                   changed_cells_a_map=changed // maps)
+        for gated in counts:
+            gate = gate_of(robots, gated)
+            row[f"ms_{gated}_gated"] = device_times(t=(
+                lambda: map_tail(levels, quads, sets, gate, "log_odds", lf,
+                                 lo), 20))["t"]
+            bytes_ = gated * (cells * (4 + 2 + 16) + 4 * changed // maps)
+            row[f"bound_ms_{gated}_gated"] = bytes_ / HBM_BYTES_PER_S * 1e3
+        gate = gate_of(robots, 1)
+        into = list(levels) + list(quads)
+        row.update(device_times(
+            plain_ms=(lambda: map_tail_plain(levels, quads, sets, gate,
+                                             "log_odds", lf, lo), 5),
+            chain_ms=(lambda: chain(levels, sets, gate, "log_odds", into),
+                      5)))
+        row["bytes_a_gated_map"] = cells * (4 + 2 + 16) + 4 * changed // maps
+        rows.append(row)
+        del levels, quads, sets, into
+        torch.cuda.empty_cache()
+    ok = all(checks.values())
+    emit("map_tail", ok=ok, checks=checks, card=card_line(),
+         max_abs_err=max_err, free_share=TAIL_FREE_SHARE,
+         occ_share=TAIL_OCC_SHARE, timed=rows)
+    if not ok:
+        raise SystemExit("map_tail disagrees with its plain version or the "
+                         "chain: " + ", ".join(k for k, v in checks.items()
+                                               if not v))
+    return rows, max_err
 
 
 def phase_probes(dev, kernels):
@@ -2307,7 +2452,8 @@ def phase_sharded(dev, kernels, fleet_scans, shared_scans, starts,
     bit-equal to the eager sharded run and to the unsharded run of the
     ``*_jit`` entry points here; one capture in the first compiled turn
     and none after, no stream sync in a replay, one paint_cells launch
-    a rank and step (and one in the capture's warm-up). The launches are
+    a rank and step (and one in the capture's warm-up). Every run, gloo
+    or NCCL, launches the map tail twice for each paint. The launches are
     counted in the ranks; the steps after the first (timed) hold gated
     updates of both fleets. Returns the launches the ranks counted,
     summed over them, and the paint launches of each run."""
@@ -2402,6 +2548,8 @@ def phase_sharded(dev, kernels, fleet_scans, shared_scans, starts,
     launches = {name: sum(launches_of(g, name) for g in got.values())
                 for name in kernels}
     paints = {k: launches_of(g, "paint_cells") for k, g in got.items()}
+    # every paint is applied by the map tail's two launches
+    tails = {k: launches_of(g, "map_tail") for k, g in got.items()}
     # a gloo rank paints once per step where a gate of its robots fired:
     # a fleet row's beam ranks when one of the row's robots gated, every
     # shared-fleet rank when any robot gated; the NCCL rank's compiled
@@ -2478,6 +2626,7 @@ def phase_sharded(dev, kernels, fleet_scans, shared_scans, starts,
             and np.array_equal(nh["poses"], hyp_poses)),
         "paint_launches": paints == expected
         and launches["interp_moments"] == 0,
+        "map_tail_launches": tails == {k: 2 * v for k, v in paints.items()},
         # the timed steps hold gated updates of both fleets
         "timed_steps_gated": bool(fgates[1:].any() and sgates[1:].any()),
         "finite": bool(np.isfinite(fl["poses"]).all()
@@ -2515,7 +2664,7 @@ def phase_sharded(dev, kernels, fleet_scans, shared_scans, starts,
              later_captures=int(nh["later_captures"]),
              pool_bytes=int(nh["pool_bytes"]), syncs=int(nh["syncs"])),
          wall_s=wall, kernel_launches=launches, paint_launches_by_run=paints,
-         expected_paint_launches=expected)
+         expected_paint_launches=expected, map_tail_launches_by_run=tails)
     if not ok:
         raise SystemExit("the sharded runs failed their checks: " + ", ".join(
             k for k, v in checks.items() if not v))
@@ -2563,13 +2712,15 @@ def run_paths(dev):
     from hector_slam_tpu_torch.ops.dyn_slice import dyn_slice
     from hector_slam_tpu_torch.ops.interp_moments import (
         interp_moments, interp_moments_level)
+    from hector_slam_tpu_torch.ops.map_tail import map_tail
     from hector_slam_tpu_torch.ops.matmul_stationary import matmul_stationary
     from hector_slam_tpu_torch.ops.paint_cells import paint_cells
     from hector_slam_tpu_torch.ops.paint_runs import paint_runs
     from hector_slam_tpu_torch.ops.take_along import take_along
     kernels = {"interp_moments": interp_moments,
                "interp_moments_level": interp_moments_level,
-               "paint_cells": paint_cells, "take_along": take_along,
+               "paint_cells": paint_cells, "map_tail": map_tail,
+               "take_along": take_along,
                "matmul_stationary": matmul_stationary,
                "dyn_slice": dyn_slice, "paint_runs": paint_runs}
     abs_kvp = phase_kernel_vs_plain(dev)
@@ -2594,6 +2745,7 @@ def run_paths(dev):
     del sequential, fleet, shared
     paint_inputs.update(sharded_paint_inputs(fleet_first, shared_first))
     paint_rows, paint_bad = phase_paint(dev, paint_inputs)
+    tail_rows, tail_err = phase_map_tail(dev)
     paths["probes"], probe_rows, long_lines = phase_probes(dev, kernels)
     paths["queries"] = phase_queries(dev, kernels, shared_state)
     del shared_state
@@ -2686,7 +2838,26 @@ def run_paths(dev):
         probe_entry("dyn_slice", pdir + "dyn_slice.cu",
                     "tools/probe_pallas.py:188", paths, probe_rows),
         probe_entry("paint_runs", pdir + "paint_runs.cu",
-                    "tools/probe_mosaic_store.py:112", paths, probe_rows)]
+                    "tools/probe_mosaic_store.py:112", paths, probe_rows),
+        {"name": "map_tail",
+         "route": "cuda",
+         "source": pdir + "map_tail.cu",
+         "replaces": None,
+         "replaces_note": "no TPU kernel: the JAX package leaves the "
+                          "update, the gate's select and the repack to XLA",
+         "launches": sum(by_path("map_tail").values()),
+         "launches_by_path": by_path("map_tail"),
+         "max_abs_err": tail_err,
+         "ms": tail_rows[0]["ms_1_gated"],
+         "plain_ms": tail_rows[0]["plain_ms"],
+         "chain_ms": tail_rows[0]["chain_ms"],
+         "bound_ms": tail_rows[0]["bound_ms_1_gated"],
+         "bound_by": "bytes",
+         "library_ms": None,
+         "per_call": "fleet40's update, 1 of 8 tutorial pyramids gated; "
+                     "chain_ms: the torch ops it replaced, write-back "
+                     "included",
+         "timed": tail_rows}]
 
 
 def main() -> int:

@@ -64,12 +64,13 @@ import torch
 
 from .. import tracing
 from ..ops.interp_moments import interp_moments, interp_moments_level
+from ..ops.map_tail import map_tail
 from ..ops.paint_cells import paint_cells
 
 MAX_GRAPHS = 8
 COUNTED = {"interp_moments": interp_moments,
            "interp_moments_level": interp_moments_level,
-           "paint_cells": paint_cells}
+           "paint_cells": paint_cells, "map_tail": map_tail}
 
 
 class GraphStats(NamedTuple):

@@ -11,7 +11,11 @@ The free cell j of a beam sits at the closed-form Bresenham offset
 every free cell is a dense [N, K] integer computation. A map update
 paints every level's free and occupied sets with one ``paint_cell_sets``
 call (one zero fill and one launch of the CUDA kernel
-``csrc/paint_cells.cu`` on the card).
+``csrc/paint_cells.cu`` on the card). The steps apply the painted sets
+with ``integrate_sets``: the map tail kernel pair (ops/map_tail.py)
+writes the levels and packs the matcher's quads anew, only for the maps
+whose gate fired; ``update_pyramid`` applies them with ``apply_update``
+into new tensors, as the JAX package's does.
 
 The rasterizer broadcasts over leading axes, so a fleet's R scans cost
 one paint call per update, like one scan: each set goes into one [H*W]
@@ -29,16 +33,18 @@ possible cell of every beam. Both layouts give the same cells.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
 from ..config import SlamConfig
+from ..ops.map_tail import map_tail
 from ..ops.paint_cells import paint_cell_sets
 from ..types import Scan
 from .cell_models import apply_update, storage_channels
 from .collectives import por
 from .grid import world_to_map_pose
+from .interp import quad_pack_storage
 from .matcher import level_points
 
 
@@ -340,16 +346,16 @@ def _level_sets(grid_shape, per_robot, pose_world, scan_points, scan_origo,
     return (free, occ), shape, truncated
 
 
-def _update_levels(storages, level_inputs, cell_model: str,
-                   log_odds_free: float, log_odds_occupied: float,
-                   beam_axis=None, raster_backend=None, sync_free=False):
-    """Each storage updated with its level's scan inputs (pose, points,
-    origo, mask, offset, scale, max_ray_cells): every level's index sets
-    first (their layout by ``pick_raster_backend``), then all of them
-    painted in one call (and OR-combined over ``beam_axis``), then each
-    level updated. A storage with a leading robot axis beyond the cell
-    model's own is R maps. Returns (new storages, this rank's truncated
-    cells per level). ``sync_free``: as in ``_seg_pairs``."""
+def _paint_levels(storages, level_inputs, cell_model: str, beam_axis=None,
+                  raster_backend=None, sync_free=False):
+    """Each storage's cell sets from its level's scan inputs (pose,
+    points, origo, mask, offset, scale, max_ray_cells): every level's
+    index sets first (their layout by ``pick_raster_backend``), then all
+    of them painted in one call (and OR-combined over ``beam_axis``). A
+    storage with a leading robot axis beyond the cell model's own is R
+    maps. Returns (each level's painted (free, occupied) bool grids, this
+    rank's truncated cells per level). ``sync_free``: as in
+    ``_seg_pairs``."""
     per_robot = storages[0].dim() > 1 + storage_channels(cell_model)
     one_scan = level_inputs[0][0].dim() == 1 and not per_robot
     if pick_raster_backend(raster_backend, storages[0].device, beam_axis,
@@ -361,12 +367,7 @@ def _update_levels(storages, level_inputs, cell_model: str,
         pairs, shapes, truncated = zip(*(
             _level_sets(tuple(lo.shape[-2:]), per_robot, *inputs)
             for lo, inputs in zip(storages, level_inputs)))
-    new = tuple(
-        apply_update(lo, free_set & ~occ_set, occ_set, cell_model,
-                     log_odds_free, log_odds_occupied)
-        for lo, (free_set, occ_set) in zip(
-            storages, _paint_pairs(pairs, shapes, beam_axis)))
-    return new, list(truncated)
+    return _paint_pairs(pairs, shapes, beam_axis), list(truncated)
 
 
 def rasterize_scan(
@@ -446,12 +447,12 @@ def update_level(
     ``beam_axis`` and the truncated count as in ``update_pyramid``;
     ``raster_backend`` as in ``pick_raster_backend`` (the JAX package's
     ``update_level`` parameters, in its order)."""
-    [new], [truncated] = _update_levels(
+    [(free_set, occ_set)], [truncated] = _paint_levels(
         [log_odds], [(pose_world, scan_points, scan_origo, scan_mask, offset,
                       scale, max_ray_cells)],
-        cell_model, log_odds_free, log_odds_occupied, beam_axis,
-        raster_backend)
-    return new, truncated
+        cell_model, beam_axis, raster_backend)
+    return apply_update(log_odds, free_set & ~occ_set, occ_set, cell_model,
+                        log_odds_free, log_odds_occupied), truncated
 
 
 def update_pyramid(
@@ -498,18 +499,72 @@ def update_pyramid(
     level's dense set where its total exceeds the budget; with
     ``sync_free`` it paints both sets and the device masks the one not
     chosen, so the update reads nothing on the host."""
+    sets, truncated = paint_pyramid(log_odds_pyramid, pose_world, scan, cfg,
+                                    beam_axis, raster_backend, gates=gates,
+                                    sync_free=sync_free)
+    upd = cfg.update
+    return tuple(
+        apply_update(lo, free_set & ~occ_set, occ_set, upd.cell_model,
+                     upd.log_odds_free, upd.log_odds_occupied)
+        for lo, (free_set, occ_set) in zip(log_odds_pyramid, sets)), \
+        truncated
+
+
+def paint_pyramid(
+    log_odds_pyramid: Sequence[torch.Tensor],
+    pose_world: torch.Tensor,
+    scan: Scan,
+    cfg: SlamConfig,
+    beam_axis=None,
+    raster_backend: str | None = None,
+    *,
+    gates: torch.Tensor | None = None,
+    sync_free: bool = False,
+) -> Tuple[List[Tuple[torch.Tensor, torch.Tensor]], torch.Tensor]:
+    """``update_pyramid``'s cell sets, painted and not yet applied: (each
+    level's (free, occupied) bool grids, shaped as its storage without
+    the channel axis, truncated cells i32[(R,)] summed over levels).
+    Arguments as in ``update_pyramid``; ``integrate_sets`` applies them."""
     mcfg = cfg.map
     mask = scan.mask if gates is None else scan.mask & gates[:, None]
-    new, truncated = _update_levels(
+    sets, truncated = _paint_levels(
         log_odds_pyramid,
         [(pose_world, level_points(scan.points, level),
           level_points(scan.origo, level), mask, mcfg.top_left_offset,
           mcfg.level_scale(level), cfg.level_max_ray_cells(level))
          for level in range(len(log_odds_pyramid))],
-        cfg.update.cell_model, cfg.update.log_odds_free,
-        cfg.update.log_odds_occupied, beam_axis, raster_backend, sync_free)
+        cfg.update.cell_model, beam_axis, raster_backend, sync_free)
     truncated_total = torch.zeros(pose_world.shape[:-1], dtype=torch.int32,
                                   device=scan.points.device)
     for t in truncated:
         truncated_total = truncated_total + t
-    return new, truncated_total
+    return sets, truncated_total
+
+
+def integrate_sets(
+    log_odds_pyramid: Sequence[torch.Tensor],
+    quads: Sequence[torch.Tensor],
+    sets: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    gate: torch.Tensor,
+    cfg: SlamConfig,
+    in_place: bool = False,
+) -> Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
+    """One update's painted cell sets (``paint_pyramid``) applied to the
+    maps whose ``gate`` fired (bool: one for every map, or one a robot),
+    and those maps' quads packed anew, by ``ops/map_tail.map_tail``:
+    the other maps keep their levels and quads bit for bit. Returns (new
+    pyramid, new quads). ``in_place``: written into ``log_odds_pyramid``
+    and ``quads`` themselves and returned as they are (a donating step's
+    own maps); otherwise into copies, and the inputs are left as they
+    were. A pyramid given without quads (``quads`` empty) has them packed
+    first."""
+    if not quads:
+        quads = tuple(quad_pack_storage(lo, cfg.update.cell_model)
+                      for lo in log_odds_pyramid)
+    elif not in_place:
+        quads = tuple(q.clone() for q in quads)
+    if not in_place:
+        log_odds_pyramid = tuple(lo.clone() for lo in log_odds_pyramid)
+    map_tail(log_odds_pyramid, quads, sets, gate, cfg.update.cell_model,
+             cfg.update.log_odds_free, cfg.update.log_odds_occupied)
+    return tuple(log_odds_pyramid), tuple(quads)

@@ -9,11 +9,13 @@ sets one more (the levels' segment totals, ``core/mapping._seg_pairs``).
 
 The compiled entry points (``slam_step_jit``, ``match_phase_jit``,
 ``update_phase_jit``, ``run_log_jit``) run the sync-free body instead
-(``slam_step_sync_free``): the map update runs on every scan and the gate
-selects on the device, as JAX's select form does
+(``slam_step_sync_free``): the cell sets are painted on every scan and
+the map tail (core/mapping.integrate_sets) writes the map only where the
+gate, read on the device, fired, which is JAX's select form
 (hector_slam_tpu/core/slam.py:124-131). On CUDA tensors it is captured
-once per static signature as a CUDA graph (core/graphs.py) and replayed
-with no host round trip; on CPU tensors it runs eagerly.
+once per static signature as a CUDA graph (core/graphs.py), which
+updates the donated maps in place, and replayed with no host round trip;
+on CPU tensors it runs eagerly.
 
 Replicated behaviours:
   - map_without_matching accepts the pose hint verbatim and forces the map
@@ -40,7 +42,7 @@ from . import graphs
 from .collectives import psum
 from .grid import init_log_odds_pyramid, pose_difference_larger_than
 from .interp import quad_pack_storage
-from .mapping import update_pyramid
+from .mapping import integrate_sets, paint_pyramid
 from .matcher import match_pyramid
 
 
@@ -114,13 +116,14 @@ def update_phase(
     # issue the update's collectives together
     if bool(do_update):   # the one host sync per scan
         tracing.count("update.runs")
-        new_log_odds, truncated = update_pyramid(
+        sets, truncated = paint_pyramid(
             state.log_odds, new_pose, scan, cfg, beam_axis, raster_backend)
         truncated = psum(truncated, beam_axis)
         new_last_update_pose = new_pose
         # refresh the cached quads only when the map changed (the
         # reference's epoch-cache invalidation, MapRepMultiMap.h:107-114)
-        new_quads = quads_of(new_log_odds, cfg.update.cell_model)
+        new_log_odds, new_quads = integrate_sets(
+            state.log_odds, state.quads, sets, do_update, cfg)
     else:
         new_log_odds = state.log_odds
         truncated = torch.zeros((), dtype=torch.int32,
@@ -172,28 +175,31 @@ def update_phase_sync_free(
     hessian: torch.Tensor,
     map_without_matching: bool = False,
     raster_backend: Optional[str] = None,
+    *,
+    in_place: bool = False,
 ) -> Tuple[SlamState, StepMetrics]:
     """``update_phase`` with the gate decided on the device and no host
-    read: the map update runs on every scan and ``torch.where`` keeps the
-    old levels, last update pose and a zero truncated count where the
-    gate did not fire (JAX's select form,
-    hector_slam_tpu/core/slam.py:124-131); the quads are packed from the
-    chosen levels on every scan (an unchanged map packs to the same
-    bits). A segment-compacted update masks its unchosen free set on the
-    device (``update_pyramid(..., sync_free=True)``). Bit-equal to
+    read: the cell sets are painted on every scan, and the map update
+    (``integrate_sets``) writes the levels and packs the quads only where
+    the gate fired, deciding on the device; ``torch.where`` keeps the
+    last update pose and a zero truncated count where it did not (JAX's
+    select form, hector_slam_tpu/core/slam.py:124-131). A
+    segment-compacted update masks its unchosen free set on the device
+    (``paint_pyramid(..., sync_free=True)``). ``in_place``: the new maps
+    are written into the state's own levels and quads (a donating step);
+    otherwise the state is left as it was. Bit-equal to
     ``update_phase``; the body of ``update_phase_jit``."""
     do_update = _gate(state, cfg, new_pose, map_without_matching)
     tracing.count("update.runs")
-    updated, truncated = update_pyramid(
+    sets, truncated = paint_pyramid(
         state.log_odds, new_pose, scan, cfg, None, raster_backend,
         sync_free=True)
-    new_log_odds = tuple(torch.where(do_update, u, o)
-                         for u, o in zip(updated, state.log_odds))
+    new_log_odds, new_quads = integrate_sets(
+        state.log_odds, state.quads, sets, do_update, cfg, in_place)
     return _assemble(
         state, scan, new_pose, hessian, do_update, new_log_odds,
         torch.where(do_update, new_pose, state.last_map_update_pose),
-        quads_of(new_log_odds, cfg.update.cell_model),
-        torch.where(do_update, truncated, 0))
+        new_quads, torch.where(do_update, truncated, 0))
 
 
 def slam_step(
@@ -230,14 +236,17 @@ def slam_step_sync_free(
     pose_hint: Optional[torch.Tensor] = None,
     map_without_matching: bool = False,
     raster_backend: Optional[str] = None,
+    *,
+    in_place: bool = False,
 ) -> Tuple[SlamState, StepMetrics]:
     """``slam_step`` with no host read (``match_phase`` then
-    ``update_phase_sync_free``), bit-equal to it: the body that
-    ``slam_step_jit`` and ``run_log_jit`` capture."""
+    ``update_phase_sync_free``, ``in_place`` as there), bit-equal to it:
+    the body that ``slam_step_jit`` and ``run_log_jit`` capture."""
     new_pose, hessian = match_phase(state, scan, cfg, pose_hint,
                                     map_without_matching)
     return update_phase_sync_free(state, scan, cfg, new_pose, hessian,
-                                  map_without_matching, raster_backend)
+                                  map_without_matching, raster_backend,
+                                  in_place=in_place)
 
 
 def _replay(state: SlamState, scans: Scan, step):
@@ -300,7 +309,8 @@ def state_from_leaves(maps, small) -> SlamState:
 def _donate(into: SlamState, new: SlamState, write: bool) -> SlamState:
     """``new`` written into the donated state ``into`` and returned as
     ``into``'s tensors (``write``), or ``new`` as it is (a graph's
-    warm-up, which writes nothing)."""
+    warm-up, which writes nothing). Leaves that ``new`` shares with
+    ``into`` (maps a step updated in place) are not copied."""
     if not write:
         return new
     dst, src = state_leaves(into), state_leaves(new)
@@ -309,17 +319,19 @@ def _donate(into: SlamState, new: SlamState, write: bool) -> SlamState:
 
 
 def compiled_step(name: str, static_key, state: SlamState, inputs, step):
-    """One replay of the donating graph of ``step(state, *inputs) ->
-    (new state, metrics)``, a sync-free body: the graph is keyed on the
-    state's map memory, writes the new maps into it and the new small
-    leaves (pose, gate reference, covariance, step, count) into its own
-    buffers, which it returns as the new state's and the next call
-    overwrites. The metrics are fresh copies."""
+    """One replay of the donating graph of ``step(state, *inputs,
+    in_place=...) -> (new state, metrics)``, a sync-free body: the graph
+    is keyed on the state's map memory, and the captured body updates the
+    maps in place there (``in_place=True``; the warm-up before the
+    capture writes nothing, ``in_place=False``), and writes the new small
+    leaves (pose, gate reference, covariance, step, count) into the
+    graph's own buffers, which it returns as the new state's and the next
+    call overwrites. The metrics are fresh copies."""
     maps, small = state_leaves(state)
 
     def body(held, statics, write):
         st = state_from_leaves(held, statics[:5])
-        new, metrics = step(st, *statics[5:])
+        new, metrics = step(st, *statics[5:], in_place=write)
         return _donate(st, new, write), metrics
 
     with graphs.use(name):
@@ -352,9 +364,9 @@ def slam_step_jit(state: SlamState, scan: Scan, cfg: SlamConfig,
     return compiled_step(
         "slam_step_jit", (cfg, map_without_matching, bool(hint)), state,
         [*scan, *hint],
-        lambda st, points, origo, mask, *h: slam_step_sync_free(
+        lambda st, points, origo, mask, *h, in_place: slam_step_sync_free(
             st, Scan(points, origo, mask), cfg, h[0] if h else None,
-            map_without_matching))
+            map_without_matching, in_place=in_place))
 
 
 def match_phase_jit(state: SlamState, scan: Scan, cfg: SlamConfig,
@@ -390,9 +402,10 @@ def update_phase_jit(state: SlamState, scan: Scan, cfg: SlamConfig,
     return compiled_step(
         "update_phase_jit", (cfg, map_without_matching), state,
         [*scan, new_pose, hessian],
-        lambda st, points, origo, mask, pose, hess: update_phase_sync_free(
-            st, Scan(points, origo, mask), cfg, pose, hess,
-            map_without_matching))
+        lambda st, points, origo, mask, pose, hess, in_place:
+        update_phase_sync_free(st, Scan(points, origo, mask), cfg, pose,
+                               hess, map_without_matching,
+                               in_place=in_place))
 
 
 def run_log_jit(state: SlamState, scans: Scan, cfg: SlamConfig):
@@ -427,7 +440,7 @@ def run_log_jit(state: SlamState, scans: Scan, cfg: SlamConfig):
         at = t.reshape(1)
         new, metrics = slam_step_sync_free(st, Scan(
             *(x.index_select(0, at)[0] for x in (points, origo, mask))),
-            cfg)
+            cfg, in_place=write)
         if write:
             _donate(st, new, True)
             for out, x in zip(statics[n_in + 4:], (new.pose, *metrics)):

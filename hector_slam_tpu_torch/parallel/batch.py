@@ -11,16 +11,18 @@ become leading tensor axes here (BASELINE.json configs 4-5):
 ``fleet_step`` runs the whole fleet as one batched step: per-robot GN
 matching (each robot gathers from its own quads through an int64 offset),
 per-robot gates, and one map update for all gated robots (one paint call
-for every cell set and level, core/mapping.update_pyramid). The JAX
+for every cell set and level, core/mapping.paint_pyramid). The JAX
 vmap turns the gate's ``lax.cond`` into a select; here non-gated robots'
-beams go to the sentinel, so their maps come out unchanged, and the one
-host sync per step skips the update when no robot gated.
+beams go to the sentinel and the update writes only the gated robots'
+maps and quads (core/mapping.integrate_sets), and the one host sync per
+step skips the update when no robot gated.
 
 The compiled entry points (``match_hypotheses_jit``,
 ``residual_for_poses_jit``, ``fleet_step_jit``) are CUDA graphs of
 sync-free bodies on the card (core/graphs.py): the
-fleet's update runs on every step and ``torch.where`` keeps each ungated
-robot's levels, as JAX's vmapped select does.
+fleet's cell sets are painted on every step and the update writes each
+gated robot's levels and quads, the gates read on the device, which
+keeps each ungated robot's maps as JAX's vmapped select does.
 """
 
 from __future__ import annotations
@@ -34,9 +36,9 @@ from ..core import graphs
 from ..core.collectives import psum
 from ..core.grid import pose_difference_larger_than, world_to_map_pose
 from ..core.interp import beam_sum, interp_quad, quad_pack_storage
-from ..core.mapping import update_pyramid
+from ..core.mapping import integrate_sets, paint_pyramid
 from ..core.matcher import level_points, match_pyramid
-from ..core.slam import compiled_step, init_state, quads_of
+from ..core.slam import compiled_step, init_state
 from ..ops.solve3 import det3
 from ..types import MatchResult, Scan, SlamState, StepMetrics
 
@@ -171,12 +173,12 @@ def fleet_step(
     # the gates come from the all-reduced match, so a beam group's ranks
     # take this branch together (see slam.update_phase)
     if bool(gates.any()):   # the one host sync per step
-        new_log_odds, truncated = update_pyramid(
+        sets, truncated = paint_pyramid(
             states.log_odds, new_pose, scans, cfg, beam_axis, gates=gates)
         truncated = psum(truncated, beam_axis)
-        # non-gated robots' maps are unchanged, so their quads come out
-        # as they were
-        new_quads = quads_of(new_log_odds, cfg.update.cell_model)
+        # non-gated robots' maps and quads are left as they were
+        new_log_odds, new_quads = integrate_sets(
+            states.log_odds, states.quads, sets, gates, cfg)
     else:
         new_log_odds, new_quads = states.log_odds, states.quads
         truncated = torch.zeros(gates.shape, dtype=torch.int32,
@@ -190,13 +192,17 @@ def fleet_step_sync_free(
     scans: Scan,
     cfg: SlamConfig,
     beam_axis=None,
+    *,
+    in_place: bool = False,
 ) -> Tuple[SlamState, StepMetrics]:
-    """``fleet_step`` with no host read, bit-equal to it: the update runs
-    on every step with the ungated robots' beams masked, and
-    ``torch.where`` keeps each ungated robot's levels (JAX's vmapped
-    ``lax.cond`` is this select); the quads are packed from the chosen
-    levels on every step. The body of ``fleet_step_jit`` and, with
-    ``beam_axis`` (as in ``fleet_step``), of the compiled sharded step
+    """``fleet_step`` with no host read, bit-equal to it: the cell sets
+    are painted on every step with the ungated robots' beams masked, and
+    the update writes the levels and quads of the robots whose gate fired
+    and leaves the others' (JAX's vmapped ``lax.cond`` is this select),
+    the gates read on the device. ``in_place``: written into the states'
+    own maps (a donating step); otherwise the states are left as they
+    were. The body of ``fleet_step_jit`` and, with ``beam_axis`` (as in
+    ``fleet_step``), of the compiled sharded step
     (parallel/sharded.make_fleet_step): every rank of the group then
     issues the same collectives on every step, gated or not."""
     result = match_pyramid(states.log_odds, states.pose, scans, cfg,
@@ -205,14 +211,12 @@ def fleet_step_sync_free(
     gates = pose_difference_larger_than(
         new_pose, states.last_map_update_pose,
         cfg.map_update_distance_thresh, cfg.map_update_angle_thresh)
-    updated, truncated = update_pyramid(states.log_odds, new_pose, scans,
-                                        cfg, beam_axis, gates=gates)
-    new_log_odds = tuple(
-        torch.where(gates.reshape((-1,) + (1,) * (lo.dim() - 1)), u, lo)
-        for u, lo in zip(updated, states.log_odds))
+    sets, truncated = paint_pyramid(states.log_odds, new_pose, scans, cfg,
+                                    beam_axis, gates=gates)
+    new_log_odds, new_quads = integrate_sets(
+        states.log_odds, states.quads, sets, gates, cfg, in_place)
     return _fleet_result(states, scans, new_pose, hessian, gates,
-                         new_log_odds,
-                         quads_of(new_log_odds, cfg.update.cell_model),
+                         new_log_odds, new_quads,
                          psum(truncated, beam_axis), beam_axis)
 
 
@@ -249,8 +253,8 @@ def fleet_step_jit(states: SlamState, scans: Scan, cfg: SlamConfig):
         return fleet_step_sync_free(states, scans, cfg)
     return compiled_step(
         "fleet_step_jit", (cfg,), states, scans,
-        lambda st, points, origo, mask: fleet_step_sync_free(
-            st, Scan(points, origo, mask), cfg))
+        lambda st, points, origo, mask, in_place: fleet_step_sync_free(
+            st, Scan(points, origo, mask), cfg, in_place=in_place))
 
 
 def init_fleet(cfg: SlamConfig, num_robots: int,

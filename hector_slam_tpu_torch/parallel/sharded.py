@@ -201,8 +201,9 @@ def make_fleet_step(mesh: Mesh, cfg: SlamConfig):
         return compiled_step(
             "sharded_fleet_step", (cfg, mesh.robot, mesh.beam, group),
             states, scans,
-            lambda st, points, origo, mask: fleet_step_sync_free(
-                st, Scan(points, origo, mask), cfg, beam_axis=group))
+            lambda st, points, origo, mask, in_place: fleet_step_sync_free(
+                st, Scan(points, origo, mask), cfg, beam_axis=group,
+                in_place=in_place))
     return step
 
 

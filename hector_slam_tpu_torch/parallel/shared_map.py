@@ -12,16 +12,17 @@ of the gated robots' scans.
 
 Here the OR costs nothing extra: every gated robot's indices go into one
 [H*W] paint per cell set and level, and painting them into one grid IS
-the union (core/mapping.update_pyramid on a pyramid with no robot axis).
+the union (core/mapping.paint_pyramid on a pyramid with no robot axis).
 
 Each robot keeps its own pose, covariance and gate reference; robots
 whose gate has not fired contribute nothing (their beams are masked).
 The shared pyramid and its quad cache change once per step iff some gate
 fired, and a step where none fired skips the rasterization (one host
 sync per step decides). ``shared_fleet_step_jit`` decides on the device
-instead (JAX's ``jnp.where(any_gate, updated, lo)``) and replays a CUDA
-graph on the card (core/graphs.py), with an NCCL group's all-reduces
-inside it.
+instead (JAX's ``jnp.where(any_gate, updated, lo)``: the update writes
+the pyramid and its quads only where the any-gate is set) and replays a
+CUDA graph on the card (core/graphs.py), with an NCCL group's
+all-reduces inside it.
 """
 
 from __future__ import annotations
@@ -35,9 +36,9 @@ from ..config import SlamConfig
 from ..core import graphs
 from ..core.collectives import captures_collectives, por, psum
 from ..core.grid import pose_difference_larger_than
-from ..core.mapping import update_pyramid
+from ..core.mapping import integrate_sets, paint_pyramid
 from ..core.matcher import match_pyramid
-from ..core.slam import compiled_step, init_state, quads_of
+from ..core.slam import compiled_step, init_state
 from ..ops.solve3 import det3
 from ..types import Scan, SlamState, StepMetrics
 
@@ -90,13 +91,14 @@ def shared_fleet_step(
     new_poses, hessians, gates = _match_and_gate(state, scans, cfg,
                                                  map_without_matching)
     # OR-ed over the robot shards, so every rank takes this branch or none
-    [any_gate] = por([gates.any()], robot_axis)
-    any_gate = bool(any_gate)   # the one host sync per step
+    [gate] = por([gates.any()], robot_axis)
+    any_gate = bool(gate)   # the one host sync per step
     if any_gate:
-        new_log_odds, truncated = update_pyramid(
+        sets, truncated = paint_pyramid(
             state.log_odds, new_poses, scans, cfg, robot_axis, gates=gates)
         truncated_total = psum(truncated.sum().to(torch.int32), robot_axis)
-        new_quads = quads_of(new_log_odds, cfg.update.cell_model)
+        new_log_odds, new_quads = integrate_sets(
+            state.log_odds, state.quads, sets, gate, cfg)
     else:
         new_log_odds, new_quads = state.log_odds, state.quads
         truncated_total = torch.zeros((), dtype=torch.int32,
@@ -148,13 +150,17 @@ def shared_fleet_step_sync_free(
     cfg: SlamConfig,
     map_without_matching: bool = False,
     robot_axis=None,
+    *,
+    in_place: bool = False,
 ) -> Tuple[SlamState, StepMetrics]:
     """``shared_fleet_step`` with no host read, bit-equal to it: the
-    combined update runs on every step and the device keeps the old
-    levels where no gate fired (JAX's ``jnp.where(any_gate, updated,
-    lo)``, hector_slam_tpu/parallel/shared_map.py:138); the quads are
-    packed from the chosen levels and the update count is added on the
-    device. ``robot_axis`` as in ``shared_fleet_step``: the any-gate bit
+    combined cell sets are painted on every step and the update writes
+    the levels and quads only where the any-gate is set, read on the
+    device (JAX's ``jnp.where(any_gate, updated, lo)``,
+    hector_slam_tpu/parallel/shared_map.py:138); the update count is
+    added on the device. ``in_place``: written into the state's own maps
+    (a donating step); otherwise the state is left as it was.
+    ``robot_axis`` as in ``shared_fleet_step``: the any-gate bit
     is the group's OR, kept on the device, and the cell sets' OR and the
     truncated count's sum run on every step, so every rank of the group
     issues the same collectives whether a gate fired or not. The body of
@@ -163,15 +169,14 @@ def shared_fleet_step_sync_free(
     new_poses, hessians, gates = _match_and_gate(state, scans, cfg,
                                                  map_without_matching)
     [any_gate] = por([gates.any()], robot_axis)
-    updated, truncated = update_pyramid(state.log_odds, new_poses, scans,
-                                        cfg, robot_axis, gates=gates)
-    new_log_odds = tuple(torch.where(any_gate, u, lo)
-                         for u, lo in zip(updated, state.log_odds))
+    sets, truncated = paint_pyramid(state.log_odds, new_poses, scans, cfg,
+                                    robot_axis, gates=gates)
+    new_log_odds, new_quads = integrate_sets(
+        state.log_odds, state.quads, sets, any_gate, cfg, in_place)
     truncated_total = psum(truncated.sum().to(torch.int32), robot_axis)
     return _result(state, scans, new_poses, hessians, gates,
                    state.map_update_count + any_gate.to(torch.int32),
-                   new_log_odds,
-                   quads_of(new_log_odds, cfg.update.cell_model),
+                   new_log_odds, new_quads,
                    torch.where(any_gate, truncated_total, 0))
 
 
@@ -207,6 +212,7 @@ def shared_fleet_step_jit(
     return compiled_step(
         "shared_fleet_step_jit", (cfg, map_without_matching, robot_axis),
         state, scans,
-        lambda st, points, origo, mask: shared_fleet_step_sync_free(
-            st, Scan(points, origo, mask), cfg, map_without_matching,
-            robot_axis))
+        lambda st, points, origo, mask, in_place:
+        shared_fleet_step_sync_free(st, Scan(points, origo, mask), cfg,
+                                    map_without_matching, robot_axis,
+                                    in_place=in_place))

@@ -281,29 +281,41 @@ def test_cache_keeps_the_newest_graphs(as_on_card, log, monkeypatch):
 
 
 def test_launch_counts_add_up_per_replay(as_on_card, log, monkeypatch):
-    """With the paint counted as the card counts it (one launch a call),
-    a step graph counts its warm-up once and one launch a replay: the
-    update runs on every scan."""
+    """With the paint and the map tail counted as the card counts them
+    (one paint launch a call, two tail launches), a step graph counts its
+    warm-up once and one paint and two tail launches a replay: the cell
+    sets are painted on every scan, and the tail's launches run on every
+    scan too (its blocks return where the gate did not fire)."""
     from hector_slam_tpu_torch.core import mapping
+    from hector_slam_tpu_torch.ops.map_tail import map_tail
     from hector_slam_tpu_torch.ops.paint_cells import paint_cells
-    paint = mapping.paint_cell_sets
+    paint, tail = mapping.paint_cell_sets, mapping.map_tail
 
     def counted(flats, sizes):
         paint_cells.launches += 1
         return paint(flats, sizes)
 
+    def counted_tail(*args):
+        map_tail.launches += 2
+        return tail(*args)
+
     monkeypatch.setattr(mapping, "paint_cell_sets", counted)
+    monkeypatch.setattr(mapping, "map_tail", counted_tail)
     _, scans = log
     before, totals = paint_cells.launches, graphs.totals()
+    tails = map_tail.launches
     state = ht.init_state(CFG, device="cpu")
     for sc in scans[:5]:
         state, _ = ht.slam_step_jit(state, sc, CFG)
     [stats] = graphs.stats()
     assert stats.per_replay["paint_cells"] == stats.warmup["paint_cells"] == 1
+    assert stats.per_replay["map_tail"] == stats.warmup["map_tail"] == 2
     assert paint_cells.launches - before == 1 + 5
+    assert map_tail.launches - tails == 2 * (1 + 5)
     after = graphs.totals()
-    assert after["launches"]["paint_cells"] - totals["launches"][
-        "paint_cells"] == 6
+    for name, per_call in (("paint_cells", 1), ("map_tail", 2)):
+        assert after["launches"][name] - totals["launches"][name] \
+            == 6 * per_call
     assert after["replays"] - totals["replays"] == 5
 
 

@@ -109,7 +109,8 @@ def test_every_kernel_source_has_a_counted_wrapper():
     from hector_slam_tpu_torch.ops import cuda_build
     names = cuda_build.sources()
     assert set(names) == {"interp_moments", "paint_cells", "take_along",
-                          "matmul_stationary", "dyn_slice", "paint_runs"}
+                          "matmul_stationary", "dyn_slice", "paint_runs",
+                          "map_tail"}
     for name in names:
         mod = importlib.import_module(f"hector_slam_tpu_torch.ops.{name}")
         assert isinstance(getattr(mod, name).launches, int)
