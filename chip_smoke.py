@@ -17,16 +17,18 @@ the main path through the entry points a user calls:
      equal, two launches bit-identical;
   4. sequential SLAM — the 435-scan corridor fixture on BENCH_CONFIG
      through run_log (on the card each map update paints the
-     segment-compacted free sets), held against the committed JAX
-     reference trajectory (tests/fixtures/corridor_jax_reference.npz):
-     every gate equal, equal update counts, pose RMSE < 5 mm; one paint
-     launch per gated update (its six cell sets in one table); then the
-     same scans twice through slam_step(raster_backend="xla") (the dense
-     sets) and once more with the default: poses, gates and final maps
-     bit-equal, one paint launch per gated update; ms and scans/s of each
-     replay in call order, and each route's stream syncs per
-     gated update and per other scan (torch's CUDA sync debug mode, over
-     the first SYNC_COUNT_SCANS scans, untimed); then seg vs dense: a
+     segment-compacted free sets, the dense fallback chosen on the
+     device), held against the committed JAX reference trajectory
+     (tests/fixtures/corridor_jax_reference.npz): every gate equal, equal
+     update counts, pose RMSE < 5 mm; one paint launch a scan (its six
+     cell sets in one table; the update runs on every scan and the gate
+     selects); then the same scans twice through
+     slam_step(raster_backend="xla") (the dense sets) and once more with
+     the default: poses, gates and final maps bit-equal, one paint launch
+     a scan; ms and scans/s of each replay in call order, and each
+     route's stream syncs per gated update and per other scan (torch's
+     CUDA sync debug mode, over the first SYNC_COUNT_SCANS scans,
+     untimed; the two routes' equal); then seg vs dense: a
      mid-log gated update level by level, the compacted free set within
      its budget and past FORCED_BUDGET (the dense fallback) against the
      dense set, painted grids, occupied sets and truncated counts equal;
@@ -91,14 +93,14 @@ the main path through the entry points a user calls:
      robot on its own simulated corridor trajectory, 25 steps: robots 0,
      21, 42 and 63 replayed alone through slam_step must agree bit for bit
      (gates, poses, every level's map); steps/s over steps 1-24 (step 0,
-     from empty maps, is an untimed warm-up); one paint launch per update;
+     from empty maps, is an untimed warm-up); one paint launch a step;
   8. shared fleet — shared_fleet_step with 64 robots in one BENCH_CONFIG
      pyramid, replaying the committed JAX reference's 16 steps
      (tests/fixtures/shared_fleet_jax_reference.npz, written by
      tools/make_torch_fleet_reference.py): gates equal for every robot
      and step, equal update counts, pose RMSE < 1e-4 m, each level's
      counts of cells > 0 and < 0 equal; steps/s over steps 1-15; one
-     paint launch per update;
+     paint launch a step;
   9. graphs — the compiled entry points as CUDA graphs
      (hector_slam_tpu_torch/core/graphs.py), each bit-equal to the eager
      function it compiles on the inputs above: run_log_jit on the 435
@@ -118,9 +120,8 @@ the main path through the entry points a user calls:
  10. paint vs plain — paint_cell_sets at the probe's own workload (1024^2,
      65,536 random cells), at one update of each of the three
      map-update paths above (its six cell sets; the sequential update
-     as the compacted sets run_log paints, ``sequential_seg``, as the
-     dense ones, and as the compiled steps of the session and of phase
-     9 paint it, ``sequential_graphed``: each free set the compacted
+     as the dense sets and as run_log, the session and the compiled steps
+     of phase 9 paint it, ``sequential_seg``: each free set the compacted
      one followed by the dense one, the unchosen one all sentinels) and
      at one rank's first update in phase 13 (row 0, column 0: 32 robots x 576 beams into
      their own grids, 16 robots x 1,152 beams into the shared one, the
@@ -179,12 +180,13 @@ the main path through the entry points a user calls:
      equal, finest maps agreeing on more than 99.9% of cells against the
      unsharded fleet_step run here), the 64-robot shared fleet (bit-equal
      to shared_fleet_step) and shard_hypotheses at B = 4096 (within 1e-6
-     of match_hypotheses), each rank's update one paint_cells launch on
-     the steps where a gate of its group fired (gloo runs the eager
-     steps); then one NCCL rank running the compiled sharded steps (CUDA
-     graphs with the all-reduces inside) of both fleets in turns with
-     the eager sharded steps, and shard_hypotheses: bit-equal to the
-     eager sharded run and to the unsharded run of fleet_step_jit,
+     of match_hypotheses), each rank's update one paint_cells launch a
+     step and the same all-reduces on every step, gated or not (gloo
+     runs the step body eagerly); then one NCCL rank running the
+     compiled sharded steps (CUDA graphs with the all-reduces inside) of
+     both fleets in turns with the body run eagerly, and
+     shard_hypotheses: bit-equal to the eager sharded run and to the
+     unsharded run of fleet_step_jit,
      shared_fleet_step_jit and match_hypotheses_jit; one capture, then
      none, 0 stream syncs in a replay, one paint_cells launch a rank and
      step, pool bytes, robot-scans/s in turns; launches are counted in
@@ -671,16 +673,16 @@ def phase_sequential(kernels):
     gate_agree = int((gates == ref["map_updated"]).sum())
     count = int(state.map_update_count)
     trunc = int(metrics.truncated_free_cells.sum())
-    paints = count   # one paint launch per gated update
+    paints = len(gates)   # one paint launch a scan, gated or not
     ok = (gate_agree == len(gates) and count == int(ref["map_update_count"])
           and rmse < RMSE_BUDGET_M and trunc == 0
           and np.isfinite(poses).all() and poses.shape == ref["poses"].shape
           and launches["paint_cells"] == paints
           and xla_launches["paint_cells"] == paints and replays_equal
-          # the seg route adds one sync per gated update and none elsewhere
-          and syncs["seg"]["per_other_scan"] == syncs["xla"]["per_other_scan"]
-          and max(syncs["seg"]["per_gated_update"])
-          <= max(syncs["xla"]["per_gated_update"]) + 1)
+          # the seg route's fallback is chosen on the device: it syncs
+          # where the dense route does and nowhere else
+          and all(syncs["seg"][k] == syncs["xla"][k]
+                  for k in ("per_gated_update", "per_other_scan")))
     emit("sequential_slam", ok=ok, scans=len(gates), ms=ms,
          scans_per_s=len(gates) / (ms / 1e3), gate_agreement=gate_agree,
          map_update_count=count, jax_map_update_count=int(
@@ -703,7 +705,7 @@ def phase_sequential(kernels):
     if not ok:
         raise SystemExit("sequential SLAM disagrees with the JAX reference "
                          "or with its dense-set replays, or its seg route "
-                         "adds more than one host sync per gated update")
+                         "syncs where the dense route does not")
     # one gated update's paint inputs: a mid-log scan at its matched pose
     gated = np.flatnonzero(gates)
     t = int(gated[len(gated) // 2])
@@ -1499,7 +1501,7 @@ def phase_fleet(kernels):
     poses = torch.stack(poses).cpu().numpy()
     gates = torch.stack([m.map_updated for m in metrics]).cpu().numpy()
     updates = int(gates.any(1).sum())
-    paints = updates   # one paint launch per update of the whole fleet
+    paints = FLEET_STEPS   # one paint launch a step of the whole fleet
 
     # each checked robot alone through slam_step, on the card
     solo = {}
@@ -1575,7 +1577,7 @@ def phase_shared_fleet(kernels):
     rmse = float(np.sqrt(np.mean((poses[..., :2]
                                   - ref["poses"][..., :2]) ** 2)))
     count = int(state.map_update_count)
-    paints = count   # one paint launch per update of the shared map
+    paints = steps   # one paint launch a step of the shared map
     ok = (bool((gates == ref["map_updated"]).all())
           and count == int(ref["map_update_count"]) and rmse < SHARED_RMSE_M
           and occ == ref["occupied_cells"].tolist()
@@ -1849,11 +1851,10 @@ def phase_graphs(dev, kernels, sequential, hyp_inputs, fleet, shared):
 def paint_index_sets(cfg, poses, scan, layout):
     """(names, indices i32, num_cells) of the six cell sets one map update
     paints at these poses: one scan's dense sets (``single``) or its
-    segment-compacted ones (``seg``, the dense free set on a level past
-    its budget; ``seg_sync_free``, as a compiled step paints them: each
-    free set the compacted one followed by the dense one, the unchosen
-    one all sentinels), R scans into per-robot grids (``per_robot``) or
-    into one shared grid (``shared``)."""
+    segment-compacted ones (``seg``: each free set the compacted one
+    followed by the dense one, the one not chosen, on the device, all
+    sentinels), R scans into per-robot grids (``per_robot``) or into one
+    shared grid (``shared``)."""
     from hector_slam_tpu_torch.core.mapping import _seg_pairs, cell_indices
     from hector_slam_tpu_torch.core.matcher import level_points
     shapes, inputs = [], []
@@ -1864,9 +1865,8 @@ def paint_index_sets(cfg, poses, scan, layout):
                        level_points(scan.origo, level), scan.mask,
                        cfg.map.top_left_offset, cfg.map.level_scale(level),
                        cfg.level_max_ray_cells(level)))
-    if layout in ("seg", "seg_sync_free"):
-        pairs = _seg_pairs(shapes, inputs,
-                           sync_free=layout == "seg_sync_free")[0]
+    if layout == "seg":
+        pairs = _seg_pairs(shapes, inputs)[0]
         cells = [sy * sx for sy, sx in shapes]
     else:
         built = [cell_indices(shape, *args, layout == "per_robot")
@@ -2443,11 +2443,12 @@ def phase_sharded(dev, kernels, fleet_scans, shared_scans, starts,
     to JAX's bars (poses within SHARDED_POSE_M, gates equal, the finest
     maps agreeing on more than SHARDED_MAP_AGREE of cells), the shared
     fleet bit for bit (robots only), the hypotheses within
-    SHARDED_HYP_M. A gloo group runs the eager steps: every rank's map
-    update is one paint_cells launch on the steps where a gate of its
-    group fired. (b) One NCCL rank: the compiled sharded steps (CUDA
-    graphs with the group's all-reduces inside) of both fleets, in turns
-    with the eager sharded steps (SHARDED_TURNS), and shard_hypotheses
+    SHARDED_HYP_M. A gloo group runs the step body eagerly: every rank's
+    map update is one paint_cells launch a step, and every rank issues
+    the same all-reduces on every step, gated or not. (b) One NCCL rank:
+    the compiled sharded steps (CUDA graphs with the group's all-reduces
+    inside) of both fleets, in turns with the body run eagerly
+    (SHARDED_TURNS), and shard_hypotheses
     (match_hypotheses_jit's graph) beside the eager matcher: each
     bit-equal to the eager sharded run and to the unsharded run of the
     ``*_jit`` entry points here; one capture in the first compiled turn
@@ -2550,23 +2551,20 @@ def phase_sharded(dev, kernels, fleet_scans, shared_scans, starts,
     paints = {k: launches_of(g, "paint_cells") for k, g in got.items()}
     # every paint is applied by the map tail's two launches
     tails = {k: launches_of(g, "map_tail") for k, g in got.items()}
-    # a gloo rank paints once per step where a gate of its robots fired:
-    # a fleet row's beam ranks when one of the row's robots gated, every
-    # shared-fleet rank when any robot gated; the NCCL rank's compiled
-    # turns once a step and once in the capture's warm-up, its eager
-    # turns once per gated step; the hypotheses paint nothing
-    beam = SHARDED_RANKS // SHARDED_ROBOT_AXIS
-    rows = fgates.reshape(SHARDED_STEPS, SHARDED_ROBOT_AXIS, -1).any(-1)
-
-    def nccl_paints(gates):
-        return sum(SHARDED_STEPS + (i == compiled[0])
-                   if SHARDED_TURNS[i] == "step" else int(gates.any(1).sum())
-                   for i in turns)
-
-    expected = {"fleet": beam * int(rows.sum()),
-                "shared_fleet": SHARDED_RANKS * int(sgates.any(1).sum()),
-                "hypotheses": 0, "nccl_fleet": nccl_paints(fgates),
-                "nccl_shared": nccl_paints(sgates), "nccl_hypotheses": 0}
+    # every rank paints once a step, gated or not, and once more in a
+    # capture's warm-up (the NCCL rank's first compiled turn); the
+    # hypotheses paint nothing
+    nccl_paints = sum(SHARDED_STEPS + (i == compiled[0]) for i in turns)
+    expected = {"fleet": SHARDED_RANKS * SHARDED_STEPS,
+                "shared_fleet": SHARDED_RANKS * SHARDED_STEPS,
+                "hypotheses": 0, "nccl_fleet": nccl_paints,
+                "nccl_shared": nccl_paints, "nccl_hypotheses": 0}
+    # the all-reduces issued in each step of the runs that issue them from
+    # Python: the gloo ranks and the NCCL rank's eager turns
+    eager_turns = [turn(g, i) for g in (fl, sf)
+                   for i in range(len(g["routes"]))] + [
+        turn(g, i) for g in (nf, ns) for i in turns if i not in compiled]
+    all_reduces = [t["all_reduces"].tolist() for t in eager_turns]
 
     def levels_of(run):
         return run["levels"] if "levels" in run else [
@@ -2627,6 +2625,12 @@ def phase_sharded(dev, kernels, fleet_scans, shared_scans, starts,
         "paint_launches": paints == expected
         and launches["interp_moments"] == 0,
         "map_tail_launches": tails == {k: 2 * v for k, v in paints.items()},
+        # every rank issues the same all-reduces on every step, gated or
+        # not
+        "same_all_reduces_every_step": all(
+            len(set(t["all_reduces"].tolist())) == 1
+            and np.array_equal(t["all_reduces"], t["all_reduces_min"])
+            for t in eager_turns),
         # the timed steps hold gated updates of both fleets
         "timed_steps_gated": bool(fgates[1:].any() and sgates[1:].any()),
         "finite": bool(np.isfinite(fl["poses"]).all()
@@ -2664,7 +2668,8 @@ def phase_sharded(dev, kernels, fleet_scans, shared_scans, starts,
              later_captures=int(nh["later_captures"]),
              pool_bytes=int(nh["pool_bytes"]), syncs=int(nh["syncs"])),
          wall_s=wall, kernel_launches=launches, paint_launches_by_run=paints,
-         expected_paint_launches=expected, map_tail_launches_by_run=tails)
+         expected_paint_launches=expected, map_tail_launches_by_run=tails,
+         all_reduces_per_step=all_reduces)
     if not ok:
         raise SystemExit("the sharded runs failed their checks: " + ", ".join(
             k for k, v in checks.items() if not v))
@@ -2729,7 +2734,6 @@ def run_paths(dev):
      (pose, scan), sequential) = phase_sequential(kernels)
     phase_seg_vs_dense(pose, scan)
     paint_inputs["sequential_seg"] = ("seg", pose, scan)
-    paint_inputs["sequential_graphed"] = ("seg_sync_free", pose, scan)
     paint_inputs["sequential"] = ("single", pose, scan)
     paths["session"] = phase_session(kernels, run_log_poses)
     paths["batched"], levels, abs_main, hyp_inputs = phase_batched(
@@ -2762,15 +2766,15 @@ def run_paths(dev):
         return sum(lv[key] * lv["gn_steps"] for lv in levels) / total
 
     # paint: each update shape weighted by the launches painting it (one
-    # per update, or per scan of a compiled step); run_log paints the
-    # compacted sets, the "xla" replay the dense ones, the session and the
-    # compiled sequential steps both sets (one of them all sentinels); the
-    # NCCL rank paints the whole fleet, the gloo ranks their blocks
+    # a scan or step); run_log, the session and the compiled sequential
+    # steps paint both free sets (one of them all sentinels), the "xla"
+    # replay the dense ones; the NCCL rank paints the whole fleet, the
+    # gloo ranks their blocks
     weights = {p: paths[p]["paint_cells"] + graph_paints[p]
                for p in ("fleet", "shared_fleet")}
-    weights["sequential_seg"] = paths["sequential"]["paint_cells"]
-    weights["sequential_graphed"] = (paths["session"]["paint_cells"]
-                                     + graph_paints["sequential"])
+    weights["sequential_seg"] = (paths["sequential"]["paint_cells"]
+                                 + paths["session"]["paint_cells"]
+                                 + graph_paints["sequential"])
     weights["sequential"] = paths["sequential_xla"]["paint_cells"]
     weights["fleet"] += sharded_paints["nccl_fleet"]
     weights["shared_fleet"] += sharded_paints["nccl_shared"]

@@ -27,7 +27,9 @@ One scan's free set has a second layout, the segment-compacted one
 (``raster_backend="seg"``, the JAX package's ``rasterize_scan_seg``):
 the valid 64-cell beam segments are compacted first, so the set holds
 about as many slots as the scan has free cells instead of one slot per
-possible cell of every beam. Both layouts give the same cells.
+possible cell of every beam. A level whose segments overflow the budget
+paints its dense set instead, chosen on the device. Both layouts give
+the same cells.
 """
 
 from __future__ import annotations
@@ -242,8 +244,8 @@ def seg_cell_indices(
     ``rasterize_scan_seg``, hector_slam_tpu/core/mapping.py:239-268).
     Slots past the total or a beam's length hold the sentinel
     ``num_cells``. When the total exceeds the budget the set misses
-    segments: the caller must then paint the dense set
-    (``cell_indices``) instead, as ``_seg_pairs`` does."""
+    segments: the dense set (``cell_indices``) is painted instead, as
+    ``_seg_pairs`` arranges."""
     if pose_world.dim() != 1:
         raise ValueError("the segment-compacted free set takes one scan "
                          f"(pose f32[3]), got poses {tuple(pose_world.shape)}")
@@ -283,35 +285,26 @@ def seg_cell_indices(
             _truncated_count(p, max_ray_cells), total, budget)
 
 
-def _seg_pairs(grid_shapes, level_inputs, budget_segments=0,
-               sync_free=False):
+def _seg_pairs(grid_shapes, level_inputs, budget_segments=0):
     """Each level's segment-compacted (free, occupied) index pair and
     truncated cells, for one scan. A level whose segment total exceeds
     its budget takes its dense free set instead (the JAX package's
-    ``lax.cond``, hector_slam_tpu/core/mapping.py:270-273): the totals
-    of all levels come to the host in one read. ``sync_free``: the device
-    chooses instead, with no host read: the level's free set is its
-    compacted set followed by its dense set, and the one not chosen holds
-    only the sentinel, so the cells are the same."""
+    ``lax.cond``, hector_slam_tpu/core/mapping.py:270-273), chosen on the
+    device with no host read: the level's free set is its compacted set
+    followed by its dense set, and the one not chosen holds only the
+    sentinel, so the cells are the same."""
     built = [seg_cell_indices(shape, *inputs, budget_segments=budget_segments)
              for shape, inputs in zip(grid_shapes, level_inputs)]
-    if sync_free:
-        pairs = []
-        for shape, inputs, (free, occ, num_cells, _, total, budget) in zip(
-                grid_shapes, level_inputs, built):
-            fits = total <= budget
-            sentinel = torch.full((), num_cells, dtype=torch.int32,
-                                  device=free.device)
-            dense = cell_indices(shape, *inputs)[0]
-            pairs.append((torch.cat([
-                torch.where(fits, free, sentinel).reshape(-1),
-                torch.where(fits, sentinel, dense).reshape(-1)]), occ))
-        return pairs, [b[3] for b in built]
-    totals = torch.stack([b[4] for b in built]).tolist()   # one host read
-    pairs = [((free if total <= budget
-               else cell_indices(shape, *inputs)[0]), occ)
-             for shape, inputs, (free, occ, _, _, _, budget), total
-             in zip(grid_shapes, level_inputs, built, totals)]
+    pairs = []
+    for shape, inputs, (free, occ, num_cells, _, total, budget) in zip(
+            grid_shapes, level_inputs, built):
+        fits = total <= budget
+        sentinel = torch.full((), num_cells, dtype=torch.int32,
+                              device=free.device)
+        dense = cell_indices(shape, *inputs)[0]
+        pairs.append((torch.cat([
+            torch.where(fits, free, sentinel).reshape(-1),
+            torch.where(fits, sentinel, dense).reshape(-1)]), occ))
     return pairs, [b[3] for b in built]
 
 
@@ -347,22 +340,20 @@ def _level_sets(grid_shape, per_robot, pose_world, scan_points, scan_origo,
 
 
 def _paint_levels(storages, level_inputs, cell_model: str, beam_axis=None,
-                  raster_backend=None, sync_free=False):
+                  raster_backend=None):
     """Each storage's cell sets from its level's scan inputs (pose,
     points, origo, mask, offset, scale, max_ray_cells): every level's
     index sets first (their layout by ``pick_raster_backend``), then all
     of them painted in one call (and OR-combined over ``beam_axis``). A
     storage with a leading robot axis beyond the cell model's own is R
     maps. Returns (each level's painted (free, occupied) bool grids, this
-    rank's truncated cells per level). ``sync_free``: as in
-    ``_seg_pairs``."""
+    rank's truncated cells per level)."""
     per_robot = storages[0].dim() > 1 + storage_channels(cell_model)
     one_scan = level_inputs[0][0].dim() == 1 and not per_robot
     if pick_raster_backend(raster_backend, storages[0].device, beam_axis,
                            one_scan) == "seg":
         shapes = [tuple(lo.shape[-2:]) for lo in storages]
-        pairs, truncated = _seg_pairs(shapes, level_inputs,
-                                      sync_free=sync_free)
+        pairs, truncated = _seg_pairs(shapes, level_inputs)
     else:
         pairs, shapes, truncated = zip(*(
             _level_sets(tuple(lo.shape[-2:]), per_robot, *inputs)
@@ -410,8 +401,8 @@ def rasterize_scan_seg(
     """``rasterize_scan`` of one scan through the segment-compacted free
     set (``seg_cell_indices``; the budget as in ``seg_budget``): the same
     (free_set bool[H, W], occ_set bool[H, W], truncated i32[]). Past the
-    budget the free set is the dense one, so the cells are always
-    ``rasterize_scan``'s; one host read of the segment total."""
+    budget the free set is the dense one, chosen on the device, so the
+    cells are always ``rasterize_scan``'s."""
     [pair], [truncated] = _seg_pairs(
         [grid_shape], [(pose_world, scan_points, scan_origo, scan_mask,
                         offset, scale, max_ray_cells)], budget_segments)
@@ -464,7 +455,6 @@ def update_pyramid(
     raster_backend: str | None = None,
     *,
     gates: torch.Tensor | None = None,
-    sync_free: bool = False,
 ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
     """MapRepMultiMap::updateByScan (MapRepMultiMap.h:134-147): every level
     updated independently with its 2^-level-scaled scan. Returns (new
@@ -494,14 +484,12 @@ def update_pyramid(
     ``raster_backend``: the free sets' layout, "seg" (compacted by
     segments, one scan only) or "xla" (dense); None picks "seg" for one
     scan on the card with no ``beam_axis`` and no ``gates``, else "xla"
-    (``pick_raster_backend``). Both paint the same cells. "seg" reads the
-    levels' segment totals to the host once per update, to paint a
-    level's dense set where its total exceeds the budget; with
-    ``sync_free`` it paints both sets and the device masks the one not
-    chosen, so the update reads nothing on the host."""
+    (``pick_raster_backend``). Both paint the same cells: "seg" paints a
+    level's compacted set and its dense set, and the device masks the
+    dense one, or past the budget the compacted one, so the update reads
+    nothing on the host."""
     sets, truncated = paint_pyramid(log_odds_pyramid, pose_world, scan, cfg,
-                                    beam_axis, raster_backend, gates=gates,
-                                    sync_free=sync_free)
+                                    beam_axis, raster_backend, gates=gates)
     upd = cfg.update
     return tuple(
         apply_update(lo, free_set & ~occ_set, occ_set, upd.cell_model,
@@ -519,7 +507,6 @@ def paint_pyramid(
     raster_backend: str | None = None,
     *,
     gates: torch.Tensor | None = None,
-    sync_free: bool = False,
 ) -> Tuple[List[Tuple[torch.Tensor, torch.Tensor]], torch.Tensor]:
     """``update_pyramid``'s cell sets, painted and not yet applied: (each
     level's (free, occupied) bool grids, shaped as its storage without
@@ -533,7 +520,7 @@ def paint_pyramid(
           level_points(scan.origo, level), mask, mcfg.top_left_offset,
           mcfg.level_scale(level), cfg.level_max_ray_cells(level))
          for level in range(len(log_odds_pyramid))],
-        cfg.update.cell_model, beam_axis, raster_backend, sync_free)
+        cfg.update.cell_model, beam_axis, raster_backend)
     truncated_total = torch.zeros(pose_world.shape[:-1], dtype=torch.int32,
                                   device=scan.points.device)
     for t in truncated:

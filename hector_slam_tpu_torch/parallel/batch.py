@@ -8,21 +8,18 @@ become leading tensor axes here (BASELINE.json configs 4-5):
   - robot axis R: independent trajectories, each with its own scan and
     map pyramid — a leading axis on every ``SlamState`` leaf.
 
-``fleet_step`` runs the whole fleet as one batched step: per-robot GN
-matching (each robot gathers from its own quads through an int64 offset),
-per-robot gates, and one map update for all gated robots (one paint call
-for every cell set and level, core/mapping.paint_pyramid). The JAX
-vmap turns the gate's ``lax.cond`` into a select; here non-gated robots'
-beams go to the sentinel and the update writes only the gated robots'
-maps and quads (core/mapping.integrate_sets), and the one host sync per
-step skips the update when no robot gated.
+``fleet_step`` runs the whole fleet as one batched step with no host
+read: per-robot GN matching (each robot gathers from its own quads
+through an int64 offset), per-robot gates, and one map update for the
+fleet (one paint call for every cell set and level,
+core/mapping.paint_pyramid). The JAX vmap turns the gate's ``lax.cond``
+into a select; here the ungated robots' beams go to the sentinel and the
+update writes only the gated robots' maps and quads
+(core/mapping.integrate_sets), the gates read on the device.
 
 The compiled entry points (``match_hypotheses_jit``,
-``residual_for_poses_jit``, ``fleet_step_jit``) are CUDA graphs of
-sync-free bodies on the card (core/graphs.py): the
-fleet's cell sets are painted on every step and the update writes each
-gated robot's levels and quads, the gates read on the device, which
-keeps each ungated robot's maps as JAX's vmapped select does.
+``residual_for_poses_jit``, ``fleet_step_jit``) are CUDA graphs of these
+bodies on the card (core/graphs.py).
 """
 
 from __future__ import annotations
@@ -154,57 +151,27 @@ def fleet_step(
     scans: Scan,         # points [R, N, 2], origo [R, 2], mask [R, N]
     cfg: SlamConfig,
     beam_axis=None,
+    *,
+    in_place: bool = False,
 ) -> Tuple[SlamState, StepMetrics]:
     """One SLAM step for R independent robots: each robot matches its scan
     against its own map, gates on its own last update pose and, if gated,
     integrates into its own map — ``slam_step`` per robot, batched.
     Returns (new states, metrics with leading axis R).
 
+    The cell sets are painted on every step with the ungated robots'
+    beams masked, and the update writes the levels and quads of the
+    robots whose gate fired and leaves the others' (JAX's vmapped
+    ``lax.cond`` is this select), the gates read on the device.
+    ``in_place``: written into the states' own maps (a donating step);
+    otherwise the states are left as they were.
+
     ``beam_axis``: the process group over which the scans' beams are
     sharded (parallel/sharded.make_fleet_step): its ranks hold the same
     robots, combine each GN step's normal equations and the painted cell
-    sets, and so take the same gates, as ``slam_step`` does."""
-    result = match_pyramid(states.log_odds, states.pose, scans, cfg,
-                           quads=states.quads, beam_axis=beam_axis)
-    new_pose, hessian = result.pose, result.hessian
-    gates = pose_difference_larger_than(
-        new_pose, states.last_map_update_pose,
-        cfg.map_update_distance_thresh, cfg.map_update_angle_thresh)
-    # the gates come from the all-reduced match, so a beam group's ranks
-    # take this branch together (see slam.update_phase)
-    if bool(gates.any()):   # the one host sync per step
-        sets, truncated = paint_pyramid(
-            states.log_odds, new_pose, scans, cfg, beam_axis, gates=gates)
-        truncated = psum(truncated, beam_axis)
-        # non-gated robots' maps and quads are left as they were
-        new_log_odds, new_quads = integrate_sets(
-            states.log_odds, states.quads, sets, gates, cfg)
-    else:
-        new_log_odds, new_quads = states.log_odds, states.quads
-        truncated = torch.zeros(gates.shape, dtype=torch.int32,
-                                device=gates.device)
-    return _fleet_result(states, scans, new_pose, hessian, gates,
-                         new_log_odds, new_quads, truncated, beam_axis)
-
-
-def fleet_step_sync_free(
-    states: SlamState,
-    scans: Scan,
-    cfg: SlamConfig,
-    beam_axis=None,
-    *,
-    in_place: bool = False,
-) -> Tuple[SlamState, StepMetrics]:
-    """``fleet_step`` with no host read, bit-equal to it: the cell sets
-    are painted on every step with the ungated robots' beams masked, and
-    the update writes the levels and quads of the robots whose gate fired
-    and leaves the others' (JAX's vmapped ``lax.cond`` is this select),
-    the gates read on the device. ``in_place``: written into the states'
-    own maps (a donating step); otherwise the states are left as they
-    were. The body of ``fleet_step_jit`` and, with ``beam_axis`` (as in
-    ``fleet_step``), of the compiled sharded step
-    (parallel/sharded.make_fleet_step): every rank of the group then
-    issues the same collectives on every step, gated or not."""
+    sets, and so take the same gates, as ``slam_step`` does; every rank
+    of the group issues the same collectives on every step, gated or
+    not."""
     result = match_pyramid(states.log_odds, states.pose, scans, cfg,
                            quads=states.quads, beam_axis=beam_axis)
     new_pose, hessian = result.pose, result.hessian
@@ -221,7 +188,7 @@ def fleet_step_sync_free(
 
 
 def _fleet_result(states, scans, new_pose, hessian, gates, new_log_odds,
-                  new_quads, truncated, beam_axis=None):
+                  new_quads, truncated, beam_axis):
     new_states = SlamState(
         log_odds=new_log_odds,
         pose=new_pose,
@@ -244,16 +211,16 @@ def _fleet_result(states, scans, new_pose, hessian, gates, new_log_odds,
 
 def fleet_step_jit(states: SlamState, scans: Scan, cfg: SlamConfig):
     """``fleet_step`` compiled (the JAX package's ``fleet_step_jit``,
-    hector_slam_tpu/parallel/batch.py:119): ``fleet_step_sync_free``, on
-    the card a CUDA graph captured once per (``cfg``, shapes, the fleet's
-    map memory) and replayed with no host round trip. The states are
+    hector_slam_tpu/parallel/batch.py:119): on the card a CUDA graph
+    captured once per (``cfg``, shapes, the fleet's map memory) and
+    replayed with no host round trip. The states are
     DONATED, as JAX's are (see ``slam_step_jit``); the metrics are new
     tensors. On CPU tensors the body runs eagerly."""
     if not graphs.on_card(states.pose):
-        return fleet_step_sync_free(states, scans, cfg)
+        return fleet_step(states, scans, cfg)
     return compiled_step(
         "fleet_step_jit", (cfg,), states, scans,
-        lambda st, points, origo, mask, in_place: fleet_step_sync_free(
+        lambda st, points, origo, mask, in_place: fleet_step(
             st, Scan(points, origo, mask), cfg, in_place=in_place))
 
 

@@ -27,20 +27,19 @@ available.
 The steps are compiled where the group allows it, as JAX compiles its
 ``jax.jit(shard_map(...), donate_argnums=(0,))``: on an NCCL group with
 the blocks on the card, ``make_fleet_step`` and
-``make_shared_fleet_step`` replay a CUDA graph of the sync-free bodies
-(``fleet_step_sync_free``, ``shared_fleet_step_sync_free``; the update on
-every step, the gates selected on the card), the group's all-reduces
-captured inside it, one graph per (``cfg``, the mesh's shape, the group,
-shapes, the held maps), the blocks donated. Every rank issues the same
-collectives on every step and replays the same graph. A gloo group
-reduces a CUDA tensor through host memory, which a CUDA graph cannot
-capture, so gloo groups and CPU blocks run the eager steps: the map
-update, and its collectives, only on the steps where the group's gate
-fired. The group's backend decides (``captures_collectives``); a failed
-capture raises, nothing falls back to the eager step. Drop the graphs
-(``core.graphs.clear()``) before ``destroy_process_group``: a kept graph
-holds NCCL's resources for the collectives it captured, and with more
-than one rank the teardown waits for them (``run_ranks`` does so).
+``make_shared_fleet_step`` replay a CUDA graph of the steps' one body
+(``fleet_step``, ``shared_fleet_step``; the update on every step, the
+gates selected on the card), the group's all-reduces captured inside it,
+one graph per (``cfg``, the mesh's shape, the group, shapes, the held
+maps), the blocks donated. A gloo group reduces a CUDA tensor through
+host memory, which a CUDA graph cannot capture, so gloo groups and CPU
+blocks run the same body eagerly. Either way every rank issues the same
+collectives on every step, gated or not. The group's backend decides
+(``captures_collectives``); a failed capture raises, nothing falls back
+to the eager step. Drop the graphs (``core.graphs.clear()``) before
+``destroy_process_group``: a kept graph holds NCCL's resources for the
+collectives it captured, and with more than one rank the teardown waits
+for them (``run_ranks`` does so).
 """
 
 from __future__ import annotations
@@ -59,7 +58,7 @@ from ..core import graphs
 from ..core.collectives import captures_collectives
 from ..core.slam import compiled_step
 from ..types import Scan, SlamState
-from .batch import fleet_step, fleet_step_sync_free, match_hypotheses_jit
+from .batch import fleet_step, match_hypotheses_jit
 from .shared_map import shared_fleet_step_jit
 
 PG_TIMEOUT_S = 120   # a rank's collectives give up after this long
@@ -190,9 +189,9 @@ def make_fleet_step(mesh: Mesh, cfg: SlamConfig):
     the new states and metrics.
 
     On an NCCL group with the blocks on the card the step is compiled
-    (the module docstring): ``fleet_step_sync_free`` replayed as a CUDA
-    graph with the beam group's all-reduces inside, the states DONATED
-    as in ``fleet_step_jit``. Otherwise it is the eager ``fleet_step``."""
+    (the module docstring): ``fleet_step`` replayed as a CUDA graph with
+    the beam group's all-reduces inside, the states DONATED as in
+    ``fleet_step_jit``. Otherwise ``fleet_step`` runs eagerly."""
     group = mesh.beam_group
 
     def step(states: SlamState, scans: Scan):
@@ -201,7 +200,7 @@ def make_fleet_step(mesh: Mesh, cfg: SlamConfig):
         return compiled_step(
             "sharded_fleet_step", (cfg, mesh.robot, mesh.beam, group),
             states, scans,
-            lambda st, points, origo, mask, in_place: fleet_step_sync_free(
+            lambda st, points, origo, mask, in_place: fleet_step(
                 st, Scan(points, origo, mask), cfg, beam_axis=group,
                 in_place=in_place))
     return step
@@ -238,8 +237,8 @@ def make_shared_fleet_step(mesh: Mesh, cfg: SlamConfig):
 
     ``shared_fleet_step_jit`` with the mesh's group as its robot axis: on
     an NCCL group with the blocks on the card a CUDA graph with the
-    group's all-reduces inside, the state DONATED; otherwise the eager
-    ``shared_fleet_step``."""
+    group's all-reduces inside, the state DONATED; otherwise
+    ``shared_fleet_step`` eagerly."""
     def step(state: SlamState, scans: Scan):
         return shared_fleet_step_jit(state, scans, cfg, robot_axis=mesh.group)
     return step

@@ -538,8 +538,9 @@ def test_seg_sets_equal_dense_sets_on_card(cuda_device, k_cap, budget):
 @pytest.mark.cuda
 def test_slam_step_paints_seg_sets_on_card(cuda_device, monkeypatch):
     """On the card slam_step with no raster_backend paints the compacted
-    free sets ([budget, 64] slots, one paint launch per gated update),
-    and its maps equal a "xla" replay's and the CPU's."""
+    free sets ([budget, 64] slots followed by the dense [N, K] ones, the
+    fallback chosen on the card; one paint launch a scan), and its maps
+    equal a "xla" replay's and the CPU's."""
     from hector_slam_tpu_torch.core import mapping as tmap
     cfg = ht.SlamConfig(map=ht.MapConfig(resolution=0.05, size_x=256,
                                          size_y=256, levels=2),
@@ -567,10 +568,9 @@ def test_slam_step_paints_seg_sets_on_card(cuda_device, monkeypatch):
             assert pc.paint_cells.launches == before + len(poses)
         states[(backend, dev.type)] = state
     seg_shapes = shapes[:len(poses)]
-    budgets = [tmap.seg_budget(cfg.max_beams, cfg.level_max_ray_cells(lv))[1]
-               for lv in range(cfg.map.levels)]
-    assert all(sets[0::2] == [(b, 64) for b in budgets]
-               for sets in seg_shapes)
+    slots = [tmap.seg_budget(cfg.max_beams, k)[1] * 64 + cfg.max_beams * k
+             for k in map(cfg.level_max_ray_cells, range(cfg.map.levels))]
+    assert all(sets[0::2] == [(n,) for n in slots] for sets in seg_shapes)
     assert all(sets[0][1] == cfg.level_max_ray_cells(0)
                for sets in shapes[len(poses):])
     seg = states[(None, "cuda")]
@@ -952,10 +952,9 @@ def _fixture_scans(dev, n=GRAPH_SCANS):
 @pytest.mark.cuda
 def test_slam_step_jit_replays_bit_equal_to_slam_step_on_card(cuda_device):
     """A graphed slam_step_jit (the update on every scan, the gate and the
-    seg fallback decided on the card) against the eager slam_step (its
-    gate and segment totals read on the host): poses, metrics and every
-    state leaf bit-equal scan by scan; the donated state updated in place;
-    run_log_jit bit-equal to both."""
+    seg fallback decided on the card) against its body, slam_step, run
+    eagerly: poses, metrics and every state leaf bit-equal scan by scan;
+    the donated state updated in place; run_log_jit bit-equal to both."""
     from hector_slam_tpu_torch.core import graphs
     cfg = ht.BENCH_CONFIG
     log, scans = _fixture_scans(cuda_device)
@@ -1277,7 +1276,7 @@ def test_sharded_steps_compiled_on_one_nccl_rank_on_card(cuda_device,
     all the same): make_fleet_step, make_shared_fleet_step and
     shard_hypotheses capture their graphs once, with the all-reduces
     inside, and replay them with no capture and no stream sync, bit-equal
-    to the eager sharded steps in the turns between and to the unsharded
+    to the bodies run eagerly in the turns between and to the unsharded
     compiled steps; one paint launch a step, and one in the warm-up."""
     jobs = _rank_jobs()
     from hector_slam_tpu_torch.parallel.sharded import run_ranks

@@ -1,23 +1,24 @@
-"""The compiled entry points' sync-free bodies on the CPU (the bodies the
-CUDA graphs of core/graphs.py capture on the card): bit-equal to the
-eager functions, held to JAX, and free of host reads.
+"""The step bodies on the CPU (the bodies the CUDA graphs of
+core/graphs.py capture on the card): the donating and the copying form,
+held to JAX, and free of host reads.
 
-  - ``run_log_jit`` over the first 60 scans of the corridor fixture at
-    ``BENCH_CONFIG`` (the map update on every scan, the gate a device
-    select): poses, every metric, every state leaf and the final maps
-    bit-equal to the eager ``run_log``; gates equal to JAX's
-    ``run_log_jit`` and pose RMSE < 5 mm (the sequential bar of
-    tests/test_torch_slam.py);
-  - the segment-compacted update decided on the device: within and past
-    the budget (``budget_segments=4`` forces the dense fallback) its cells
-    are JAX's ``rasterize_scan_seg``'s and the host-read route's, and
-    ``slam_step_sync_free(raster_backend="seg")`` is bit-equal to
-    ``slam_step`` with the same layout and budget;
+  - ``slam_step(in_place=True)`` over the first 60 scans of the corridor
+    fixture at ``BENCH_CONFIG`` (the map update on every scan, the gate a
+    device select): poses, every metric, every state leaf and the final
+    maps bit-equal to ``in_place=False``, which leaves its input state as
+    it was; ``run_log_jit``'s gates equal to JAX's ``run_log_jit`` and
+    pose RMSE < 5 mm (the sequential bar of tests/test_torch_slam.py);
+  - the segment-compacted update, its fallback decided on the device:
+    within and past the budget (``budget_segments=4`` forces the dense
+    fallback) its cells are JAX's ``rasterize_scan_seg``'s and the dense
+    layout's, and ``slam_step(raster_backend="seg")`` is bit-equal to
+    ``slam_step(raster_backend="xla")`` over scans gated and not;
   - no host round trip: each body runs with ``Tensor.__bool__``, ``item``,
     ``tolist``, ``cpu``, ``numpy``, ``__int__``, ``__float__`` and
     ``torch.tensor`` patched to raise (after one unpatched call, as the
     graphs' warm-up, which puts the transforms' constants on the device);
-    the eager ``slam_step`` is the control that trips it;
+    a step whose caller reads its gate on the host is the control that
+    trips it;
   - the graph helpers that run without a card: the donated write-back
     with aliased leaves, fresh copies of outputs, device constants;
   - the session's "step" and "phases" modes through the ``_jit`` entry
@@ -44,8 +45,7 @@ from hector_slam_tpu_torch.core import graphs
 from hector_slam_tpu_torch.core import mapping as tmap
 from hector_slam_tpu_torch.core.grid import (device_constant, map_to_world,
                                              world_to_map)
-from hector_slam_tpu_torch.core.slam import (match_phase, slam_step_sync_free,
-                                             update_phase_sync_free)
+from hector_slam_tpu_torch.core.slam import match_phase, update_phase
 from tools.make_torch_reference import FIXTURE
 
 SCANS = 60
@@ -63,21 +63,12 @@ def _one_thread():
     torch.set_num_threads(prev)
 
 
-def seg_sets_on_device(grid_shape, *args, budget_segments=0):
-    """``rasterize_scan_seg``'s (free, occupied, truncated) with the
-    fallback chosen on the device, as the compiled steps paint them."""
-    [pair], [truncated] = tmap._seg_pairs([grid_shape], [args],
-                                          budget_segments, sync_free=True)
-    [(free, occ)] = tmap._paint_pairs([pair], [tuple(grid_shape)])
-    return free, occ, truncated
-
-
 @contextlib.contextmanager
 def no_host_reads():
     """Every way a body could read device data on the host (or copy a
     host value to the device) raises inside the block."""
     def refuse(*args, **kwargs):
-        raise AssertionError("a host round trip in a sync-free body")
+        raise AssertionError("a host round trip in a step body")
 
     with pytest.MonkeyPatch.context() as mp:
         for name in HOST_READS:
@@ -99,9 +90,7 @@ def fixture_log():
 def replays(fixture_log):
     cfg = ht.BENCH_CONFIG
     _, _, scans = fixture_log
-    eager = ht.run_log(ht.init_state(cfg, device="cpu"), scans, cfg)
-    jit = ht.run_log_jit(ht.init_state(cfg, device="cpu"), scans, cfg)
-    return eager, jit
+    return ht.run_log_jit(ht.init_state(cfg, device="cpu"), scans, cfg)
 
 
 def _equal_states(a, b):
@@ -112,17 +101,32 @@ def _equal_states(a, b):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
-def test_run_log_jit_body_is_bit_equal_to_run_log(replays):
-    (state, poses, metrics), (jstate, jposes, jmetrics) = replays
-    assert torch.equal(poses, jposes)
-    for a, b in zip(metrics, jmetrics):
-        assert a.dtype == b.dtype and torch.equal(a, b)
-    _equal_states(state, jstate)
-    gates = metrics.map_updated
+def test_donating_step_is_bit_equal_to_copying_step(fixture_log):
+    """``in_place=True`` (the donating step that the graphs capture)
+    writes the new maps into the state's own levels and quads;
+    ``in_place=False`` writes copies and leaves its input as it was
+    (``integrate_sets``' two branches). Both give the same steps."""
+    cfg = ht.BENCH_CONFIG
+    _, _, scans = fixture_log
+    a = ht.init_state(cfg, device="cpu")
+    b = ht.init_state(cfg, device="cpu")
+    gates = []
+    for t in range(SCANS):
+        sc = ht.Scan(scans.points[t], scans.origo[t], scans.mask[t])
+        prev, kept = a, graphs.fresh(a)
+        a, ma = ht.slam_step(prev, sc, cfg)
+        _equal_states(prev, kept)
+        maps = [x.data_ptr() for x in b.log_odds + b.quads]
+        b, mb = ht.slam_step(b, sc, cfg, in_place=True)
+        assert [x.data_ptr() for x in b.log_odds + b.quads] == maps
+        for x, y in zip(ma, mb):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+        _equal_states(a, b)
+        gates.append(bool(ma.map_updated))
     # the update ran on every scan, the gate kept the map on most
-    assert 3 < int(gates.sum()) < SCANS // 2
-    assert int(jstate.map_update_count) == int(gates.sum())
-    assert int(jstate.step) == SCANS
+    assert 3 < sum(gates) < SCANS // 2
+    assert int(b.map_update_count) == sum(gates)
+    assert int(b.step) == SCANS
 
 
 def test_run_log_jit_body_holds_to_jax(fixture_log, replays):
@@ -131,14 +135,13 @@ def test_run_log_jit_body_holds_to_jax(fixture_log, replays):
     scans = j_stack([j_scan(r, JCFG.map.level_scale(0), jlaser,
                             JCFG.max_beams) for r in ranges])
     jstate, jposes, jmetrics = j_run_log_jit(j_init(JCFG), scans, JCFG)
-    _, poses, metrics = replays[1]
+    state, poses, metrics = replays
     np.testing.assert_array_equal(metrics.map_updated.numpy(),
                                   np.asarray(jmetrics.map_updated))
     rmse = float(np.sqrt(np.mean((poses.numpy()[:, :2]
                                   - np.asarray(jposes)[:, :2]) ** 2)))
     assert rmse < RMSE_BUDGET_M
-    assert int(replays[1][0].map_update_count) == int(
-        jstate.map_update_count)
+    assert int(state.map_update_count) == int(jstate.map_update_count)
 
 
 def test_run_log_jit_empty_log_returns_what_run_log_returns():
@@ -158,7 +161,7 @@ def test_seg_fallback_decided_on_device_paints_jax_cells(fixture_log,
                                                          budget):
     """One BENCH_CONFIG update per level at the fixture's scans: the
     device-chosen sets paint JAX's ``rasterize_scan_seg`` cells with the
-    same budget, and the host-read route's."""
+    same budget, and the dense layout's."""
     ranges, _, scans = fixture_log
     cfg = ht.BENCH_CONFIG
     _, jlaser, _ = j_load_log(FIXTURE)
@@ -180,15 +183,15 @@ def test_seg_fallback_decided_on_device_paints_jax_cells(fixture_log,
                      js.points * scale if level else js.points,
                      js.origo * scale if level else js.origo,
                      js.mask) + common
-            free, occ, trunc = seg_sets_on_device(*targs,
-                                                  budget_segments=budget)
-            host = tmap.rasterize_scan_seg(*targs, budget_segments=budget)
+            free, occ, trunc = tmap.rasterize_scan_seg(
+                *targs, budget_segments=budget)
+            dense = tmap.rasterize_scan(*targs)
             jfree, jocc, jtrunc = jmap.rasterize_scan_seg(
                 *jargs, budget_segments=budget)
             np.testing.assert_array_equal(free.numpy(), np.asarray(jfree))
             np.testing.assert_array_equal(occ.numpy(), np.asarray(jocc))
             assert int(trunc) == int(jtrunc)
-            for a, b in zip((free, occ, trunc), host):
+            for a, b in zip((free, occ, trunc), dense):
                 assert torch.equal(a, b)
             assert free.any()
             *_, total, cap = tmap.seg_cell_indices(
@@ -199,9 +202,10 @@ def test_seg_fallback_decided_on_device_paints_jax_cells(fixture_log,
 @pytest.mark.parametrize("budget", [0, 4])
 def test_seg_step_decided_on_device_is_bit_equal(monkeypatch, fixture_log,
                                                  budget):
-    """``slam_step_sync_free`` with the compacted sets (the card's
-    default layout) bit-equal to ``slam_step`` with the same layout and
-    budget, which reads the segment totals on the host."""
+    """``slam_step`` with the compacted sets (the card's default layout),
+    within the budget and past it (4 segments: every level takes its
+    dense fallback, chosen on the device), bit-equal to ``slam_step``
+    with the dense sets ("xla"), over scans gated and not."""
     _, _, scans = fixture_log
     cfg = ht.BENCH_CONFIG
     if budget:
@@ -213,7 +217,7 @@ def test_seg_step_decided_on_device_is_bit_equal(monkeypatch, fixture_log,
     for t in range(SEG_SCANS):
         sc = ht.Scan(scans.points[t], scans.origo[t], scans.mask[t])
         a, ma = ht.slam_step(a, sc, cfg, raster_backend="seg")
-        b, mb = slam_step_sync_free(b, sc, cfg, raster_backend="seg")
+        b, mb = ht.slam_step(b, sc, cfg, raster_backend="xla")
         for x, y in zip(ma, mb):
             assert torch.equal(x, y)
         gates.append(bool(ma.map_updated))
@@ -230,16 +234,16 @@ def test_step_bodies_make_no_host_round_trip(fixture_log):
     short = ht.Scan(*(f[:2] for f in scans))
 
     def bodies():
-        yield slam_step_sync_free(state, sc, cfg)
-        yield slam_step_sync_free(state, sc, cfg, hint)
-        yield slam_step_sync_free(state, sc, cfg, raster_backend="seg")
-        yield slam_step_sync_free(state, sc, cfg, hint, True)
+        yield ht.slam_step(state, sc, cfg)
+        yield ht.slam_step(state, sc, cfg, hint)
+        yield ht.slam_step(state, sc, cfg, raster_backend="seg")
+        yield ht.slam_step(state, sc, cfg, hint, True)
         pose, hess = match_phase(state, sc, cfg)
-        yield update_phase_sync_free(state, sc, cfg, pose, hess)
+        yield update_phase(state, sc, cfg, pose, hess)
         yield ht.run_log_jit(state, short, cfg)
         yield ht.slam_step_jit(state, sc, cfg)
         for k in (0, 4):
-            yield seg_sets_on_device(
+            yield tmap.rasterize_scan_seg(
                 (1024, 1024), hint, sc.points, sc.origo, sc.mask,
                 cfg.map.top_left_offset, cfg.map.level_scale(0),
                 cfg.level_max_ray_cells(0), budget_segments=k)
@@ -248,10 +252,10 @@ def test_step_bodies_make_no_host_round_trip(fixture_log):
     with no_host_reads():
         again = list(bodies())
     assert len(again) == len(warm) == 9
-    # the control: the eager step reads its gate on the host
+    # the control: a caller that reads the step's gate on the host
     with pytest.raises(AssertionError, match="host round trip"):
         with no_host_reads():
-            ht.slam_step(state, sc, cfg)
+            bool(ht.slam_step(state, sc, cfg)[1].map_updated)
 
 
 def test_write_back_copies_aliased_sources_first():

@@ -1,12 +1,13 @@
 """The fleets' and the batched matchers' compiled entry points on the CPU,
-where they run the sync-free bodies that the card captures as CUDA
-graphs (core/graphs.py):
+where they run the bodies that the card captures as CUDA graphs
+(core/graphs.py):
 
-  - ``fleet_step_jit`` and ``shared_fleet_step_jit`` bit-equal to the
-    eager ``fleet_step`` and ``shared_fleet_step`` at R = 4 on a 128^2 x 2
-    map, over steps where every robot, some robots and no robot gated
-    (the eager steps skip the update on the last kind; the bodies update
-    and select), and with ``map_without_matching``;
+  - the fleets' select at R = 4 on a 128^2 x 2 map, over steps where
+    every robot, some robots and no robot gated: ``fleet_step`` leaves
+    each ungated robot's levels and quads bit for bit and equals each
+    robot's solo ``slam_step``; ``shared_fleet_step`` leaves the shared
+    pyramid, its quads and its update count as they were on a step where
+    no robot gated, and gates every robot with ``map_without_matching``;
   - the shared fleet's body held to the JAX bars of
     tests/test_torch_shared_fleet.py: a fresh small JAX reference (gates,
     update count, pose RMSE < 1e-4 m, each level's cell counts) and the
@@ -25,16 +26,16 @@ import torch
 import hector_slam_tpu as hs
 
 import hector_slam_tpu_torch as ht
+from hector_slam_tpu_torch.core import graphs
 from hector_slam_tpu_torch.io.simulator import (World, corridor_trajectory,
                                                 simulate_trajectory)
-from hector_slam_tpu_torch.parallel.batch import fleet_step_sync_free
-from hector_slam_tpu_torch.parallel.shared_map import (
-    shared_fleet_step_sync_free)
 from tests.test_torch_graphs import no_host_reads
 from tools import make_torch_fleet_reference as mfr
 
 MAP_KW = dict(resolution=0.05, size_x=128, size_y=128, levels=2)
 TCFG = ht.SlamConfig(map=ht.MapConfig(**MAP_KW), max_ray_cells=128)
+# the same map with rays cut at 40 cells: every gated update truncates
+TRUNCATING = ht.SlamConfig(map=ht.MapConfig(**MAP_KW), max_ray_cells=40)
 ROBOTS, STEPS = 4, 6
 ADVANCE = (0.0, 0.05, 0.1, 0.15)     # m per step: gates at step 0, then
 RMSE_BUDGET_M = 1e-4                 # robot 3 at step 3, robot 2 at step 4
@@ -71,45 +72,61 @@ def fleet_scans():
     return scans, tracks[0].astype(np.float32)
 
 
-def _leaves(state):
-    return (list(state.log_odds) + list(state.quads)
-            + [state.pose, state.last_map_update_pose, state.covariance,
-               state.step, state.map_update_count])
-
-
-def _replay_both(eager, body, state, scans):
-    a = b = state
+def test_fleet_step_leaves_ungated_robots_maps_bit_for_bit(fleet_scans):
+    """Each ungated robot's levels and quads are left as they were, bit
+    for bit, on steps where some robots gate and on steps where none
+    does, and every robot equals its solo ``slam_step`` (pose, gate,
+    levels, quads): the update's select by robot."""
+    scans, _ = fleet_scans
+    fleet = ht.init_fleet(TCFG, ROBOTS, device="cpu")
+    solo = [ht.init_state(TCFG, device="cpu") for _ in range(ROBOTS)]
     gates = []
     for sc in scans:
-        a, ma = eager(a, sc)
-        b, mb = body(b, sc)
-        for x, y in zip(ma, mb):
-            assert x.dtype == y.dtype and torch.equal(x, y)
-        for x, y in zip(_leaves(a), _leaves(b)):
-            assert torch.equal(x, y)
-        gates.append(ma.map_updated.numpy())
-    return np.asarray(gates)
-
-
-def test_fleet_step_jit_body_is_bit_equal_to_fleet_step(fleet_scans):
-    scans, _ = fleet_scans
-    gates = _replay_both(lambda st, sc: ht.fleet_step(st, sc, TCFG),
-                         lambda st, sc: ht.fleet_step_jit(st, sc, TCFG),
-                         ht.init_fleet(TCFG, ROBOTS, device="cpu"), scans)
-    assert gates[0].all()
-    assert not gates[1].any()          # a step the eager fleet skips
-    assert 0 < gates[3:].sum() < gates[3:].size
+        before = graphs.fresh(fleet)
+        fleet, m = ht.fleet_step(fleet, sc, TCFG)
+        maps = fleet.log_odds + fleet.quads
+        kept = before.log_odds + before.quads
+        for r in range(ROBOTS):
+            solo[r], sm = ht.slam_step(solo[r], ht.Scan(
+                sc.points[r], sc.origo[r], sc.mask[r]), TCFG)
+            assert torch.equal(sm.map_updated, m.map_updated[r])
+            assert torch.equal(fleet.pose[r], solo[r].pose)
+            for a, b in zip(maps, solo[r].log_odds + solo[r].quads):
+                assert torch.equal(a[r], b)
+            if not m.map_updated[r]:
+                assert all(torch.equal(a[r], b[r])
+                           for a, b in zip(maps, kept))
+        gates.append(m.map_updated.numpy())
+    gates = np.asarray(gates)
+    assert gates[0].all() and not gates[1].any()
+    assert 0 < gates[3:].sum() < gates[3:].size   # some robots, not all
 
 
 @pytest.mark.parametrize("known", [False, True])
-def test_shared_fleet_step_jit_body_is_bit_equal(fleet_scans, known):
+def test_shared_fleet_step_updates_only_when_a_robot_gates(fleet_scans,
+                                                           known):
+    """A step where no robot gates leaves the shared pyramid, its quads
+    and the update count as they were, bit for bit, and counts no
+    truncated cell; a step where one does updates them once and counts
+    its truncated cells (rays cut at 40 cells). With known poses
+    (``map_without_matching``) every robot gates on every step."""
     scans, starts = fleet_scans
-    state = ht.init_shared_fleet(TCFG, ROBOTS, start_poses=starts,
+    state = ht.init_shared_fleet(TRUNCATING, ROBOTS, start_poses=starts,
                                  device="cpu")
-    gates = _replay_both(
-        lambda st, sc: ht.shared_fleet_step(st, sc, TCFG, known),
-        lambda st, sc: ht.shared_fleet_step_jit(st, sc, TCFG, known),
-        state, scans)
+    gates, truncated = [], []
+    for sc in scans:
+        before = graphs.fresh(state)
+        state, m = ht.shared_fleet_step(state, sc, TRUNCATING, known)
+        kept = all(torch.equal(a, b) for a, b in zip(
+            state.log_odds + state.quads, before.log_odds + before.quads))
+        gated = bool(m.map_updated.any())
+        assert kept != gated
+        assert int(state.map_update_count) == int(
+            before.map_update_count) + gated
+        truncated.append(int(m.truncated_free_cells))
+        gates.append(m.map_updated.numpy())
+    gates, truncated = np.asarray(gates), np.asarray(truncated)
+    assert ((truncated > 0) == gates.any(1)).all()
     if known:
         assert gates.all()
     else:
@@ -209,9 +226,9 @@ def test_fleet_bodies_make_no_host_round_trip(fleet_scans, mapped):
                                   device="cpu")
 
     def bodies():
-        yield fleet_step_sync_free(fleet, scans[0], TCFG)
-        yield shared_fleet_step_sync_free(shared, scans[0], TCFG)
-        yield shared_fleet_step_sync_free(shared, scans[0], TCFG, True)
+        yield ht.fleet_step(fleet, scans[0], TCFG)
+        yield ht.shared_fleet_step(shared, scans[0], TCFG)
+        yield ht.shared_fleet_step(shared, scans[0], TCFG, True)
         yield ht.match_hypotheses_jit(levels, hyps, scan, TCFG)
         yield ht.match_hypotheses_kernel_jit(levels, hyps, scan, TCFG,
                                              quads=quads)
@@ -220,6 +237,7 @@ def test_fleet_bodies_make_no_host_round_trip(fleet_scans, mapped):
     with no_host_reads():
         again = list(bodies())
     assert len(again) == len(warm) == 5
+    # the control: a caller that reads the fleet's gates on the host
     with pytest.raises(AssertionError, match="host round trip"):
         with no_host_reads():
-            ht.fleet_step(fleet, scans[0], TCFG)
+            bool(ht.fleet_step(fleet, scans[0], TCFG)[1].map_updated.any())

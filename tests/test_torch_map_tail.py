@@ -77,7 +77,7 @@ def tail_inputs(robots, shapes, model, gated, dev, seed=5):
 
 
 def chain(levels, sets, gate, model):
-    """What the sync-free bodies computed before the kernel pair: the
+    """What the step bodies computed before the kernel pair: the
     update, the gate's select and the quads of the chosen levels."""
     new = []
     for lv, (free_set, occ_set) in zip(levels, sets):

@@ -288,15 +288,18 @@ def test_seg_refuses_fleets_and_unknown_names(corridor):
 def test_slam_step_paints_the_picked_layout(monkeypatch, corridor, backend,
                                             seg_sets):
     """What slam_step paints: on the CPU the default is the dense layout
-    ([N, K] free slots), "seg" the compacted one ([budget, 64]); the
-    maps are equal either way."""
+    ([N, K] free slots), "seg" the compacted one ([budget, 64] slots)
+    followed by the dense one, the fallback chosen on the device: within
+    the budget the compacted block holds the cells and the dense block
+    only the sentinel."""
     cfg, _ = _cfgs(2)
     poses, jscans = corridor
-    shapes = []
+    shapes, painted = [], []
     paint = tmap.paint_cell_sets
 
     def spy(flats, sizes):
         shapes.append([tuple(f.shape) for f in flats])
+        painted.append((flats, sizes))
         return paint(flats, sizes)
 
     monkeypatch.setattr(tmap, "paint_cell_sets", spy)
@@ -310,9 +313,13 @@ def test_slam_step_paints_the_picked_layout(monkeypatch, corridor, backend,
     free_shapes = sets[0::2]
     n = cfg.max_beams
     if seg_sets:
-        assert all(s[1] == 64 for s in free_shapes)
-        assert free_shapes[0] == (tmap.seg_budget(
-            n, cfg.level_max_ray_cells(0))[1], 64)
+        [(flats, sizes)] = painted
+        for lv, (free, cells) in enumerate(zip(flats[0::2], sizes[0::2])):
+            k = cfg.level_max_ray_cells(lv)
+            slots = tmap.seg_budget(n, k)[1] * 64
+            assert free_shapes[lv] == (slots + n * k,)
+            compacted, dense = free[:slots], free[slots:]
+            assert (compacted < cells).any() and (dense == cells).all()
     else:
         assert free_shapes == [(n, cfg.level_max_ray_cells(lv))
                                for lv in range(cfg.map.levels)]

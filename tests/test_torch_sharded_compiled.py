@@ -1,19 +1,18 @@
 """The compiled sharded steps (hector_slam_tpu_torch/parallel/sharded.py)
 on gloo ranks on the CPU:
 
-  - the bodies that the card captures with their NCCL all-reduces,
-    ``fleet_step_sync_free(beam_axis=...)`` and
-    ``shared_fleet_step_sync_free(robot_axis=...)``, bit-equal to the
-    eager sharded steps on 2 and 4 ranks, over steps where a group's
-    gate fired and steps where none did (the eager steps skip the update
-    and its collectives there; the bodies update, all-reduce and select);
+  - gloo ranks on 2 and 4 ranks (``fleet_step(beam_axis=...)`` and
+    ``shared_fleet_step(robot_axis=...)``, the bodies that the card
+    captures with their NCCL all-reduces): every rank issues the same
+    all-reduces on a step where its group's gate fired and on one where
+    none did, and the ranks end bit-equal to the unsharded steps;
   - the compiled route itself (``make_fleet_step``,
     ``make_shared_fleet_step``, ``shard_hypotheses``) rehearsed on four
     ranks: the graph path of core/graphs.py with the capture stand-in of
     tests/test_torch_graphs_replay.py and the group's backend taken as
     one whose collectives a graph holds: one capture a rank, then
     replays, bit-equal to the eager steps;
-  - a gloo group keeps the eager route, even for blocks on the card;
+  - a gloo group runs the body eagerly, even for blocks on the card;
   - the bodies with a group make no host round trip;
   - tests/test_parallel.py::test_sharded_fleet_step_matches_vmap and
     ::test_shared_map_fleet_sharded_matches_single_device mirrored
@@ -36,7 +35,7 @@ import hector_slam_tpu_torch as ht
 from hector_slam_tpu_torch.core import collectives, graphs
 from hector_slam_tpu_torch.io.simulator import (World, corridor_trajectory,
                                                 simulate_trajectory)
-from hector_slam_tpu_torch.parallel import batch, shared_map, sharded
+from hector_slam_tpu_torch.parallel import shared_map, sharded
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
@@ -51,6 +50,7 @@ ROBOTS, STEPS = 4, 6
 ADVANCE = (0.0, 0.05, 0.1, 0.15)   # m per step: every robot gates at step
 #   0, robot 3 at step 3, robot 2 at step 4, none at steps 1, 2 and 5
 FIELDS = ("poses", "gates", "truncated", "num_valid", "count")
+POSE_M = 2e-4   # the beam axis's pose bar (tests/test_parallel.py:123-131)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -120,7 +120,7 @@ def rehearsed_jobs(rank, world_size, jobs):
     run_jobs(rank, world_size, jobs)
 
 
-FOUR_RANK_ROUTES = ("eager", "sync_free", "step", "step")
+FOUR_RANK_ROUTES = ("eager", "step", "step")
 
 
 def _hypotheses_inputs(fleet_in):
@@ -184,7 +184,7 @@ def four_ranks(inputs, tmp_path_factory):
     (``rehearsed_jobs``): the fleets of ``inputs`` on a (robot 2, beam 2)
     mesh in the turns FOUR_RANK_ROUTES, ``shard_hypotheses`` and the
     eager matcher on 16 hypotheses, and the two mirrored runs through
-    the sync-free bodies."""
+    the bodies run eagerly."""
     fleet_in, shared_in = inputs
     mirrored = _mirrored_inputs()
     tmp = tmp_path_factory.mktemp("four_ranks")
@@ -196,21 +196,51 @@ def four_ranks(inputs, tmp_path_factory):
         (hypotheses_job, (TCFG, "cpu", None, _hypotheses_inputs(fleet_in),
                           str(tmp / "h.npz"), ("step", "eager"))),
         (fleet_job, (mirrored["fleet"][-1], "cpu", 2, mirrored["fleet"][0],
-                     str(tmp / "mf.npz"), ("sync_free",))),
+                     str(tmp / "mf.npz"), ("eager",))),
         (shared_fleet_job, (mirrored["shared"][-1], "cpu", 2,
                             mirrored["shared"][0], str(tmp / "ms.npz"),
-                            ("sync_free",)))], 4, rehearsed_jobs)
+                            ("eager",)))], 4, rehearsed_jobs)
     return dict(fleet=fleet, shared=shared, hypotheses=hyp,
                 mirrored_fleet=(mfleet, *mirrored["fleet"]),
                 mirrored_shared=(mshared, *mirrored["shared"]))
 
 
+def _unsharded(inputs):
+    """The fleets of ``inputs`` through the unsharded steps here, as the
+    jobs write them."""
+    fleet_in, shared_in = inputs
+    scans, fleet, shared = _start(inputs)
+    out = {}
+    for name, step, state in (
+            ("fleet", lambda st, sc: ht.fleet_step(st, sc, TCFG), fleet),
+            ("shared", lambda st, sc: ht.shared_fleet_step(st, sc, TCFG),
+             shared)):
+        metrics = []
+        for sc in scans:
+            state, m = step(state, sc)
+            metrics.append(m)
+        out[name] = dict(
+            gates=torch.stack([m.map_updated for m in metrics]).numpy(),
+            truncated=torch.stack([m.truncated_free_cells
+                                   for m in metrics]).numpy(),
+            num_valid=torch.stack([m.num_valid_beams
+                                   for m in metrics]).numpy(),
+            poses=state.pose.numpy(), count=state.map_update_count.numpy(),
+            **{f"lo_{k}": lo.numpy() for k, lo in enumerate(state.log_odds)})
+    return out
+
+
 @pytest.mark.parametrize("ranks,robot_axis", [(2, 1), (4, 2)])
-def test_bodies_bit_equal_to_eager_sharded_steps(inputs, tmp_path, request,
-                                                 ranks, robot_axis):
+def test_gloo_ranks_issue_the_same_collectives_gated_or_not(
+        inputs, tmp_path, request, ranks, robot_axis):
     """Per-robot fleet on a (robot_axis, ranks / robot_axis) mesh, shared
-    fleet over every rank: the eager sharded step, then the sync-free
-    body given the same group, from the same blocks."""
+    fleet over every rank, gloo groups: each rank issues as many
+    all-reduces on a step where its group's gate fired as on a step where
+    none did, the same number as every other rank, and the ranks end
+    bit-equal to the unsharded steps: gates, counts and maps, and the
+    shared fleet's poses; the beam shards sum the normal equations in
+    another order, so the per-robot fleet's poses are held to JAX's bar
+    for the beam axis (tests/test_parallel.py:123-131)."""
     fleet_in, shared_in = inputs
     if ranks == 4:
         runs = request.getfixturevalue("four_ranks")
@@ -218,13 +248,21 @@ def test_bodies_bit_equal_to_eager_sharded_steps(inputs, tmp_path, request,
     else:
         fleet, shared = _run([
             (fleet_job, (TCFG, "cpu", robot_axis, fleet_in,
-                         str(tmp_path / "fleet.npz"), ("eager", "sync_free"))),
+                         str(tmp_path / "fleet.npz"), ("eager",))),
             (shared_fleet_job, (TCFG, "cpu", robot_axis, shared_in,
                                 str(tmp_path / "shared.npz"),
-                                ("eager", "sync_free")))], ranks)
-    for got in (fleet, shared):
-        assert list(got["routes"][:2]) == ["eager", "sync_free"]
-        _equal_turns(got, 0, 1)
+                                ("eager",)))], ranks)
+    want = _unsharded(inputs)
+    for got, ref in ((fleet, want["fleet"]), (shared, want["shared"])):
+        assert got["routes"][0] == "eager"
+        calls = turn(got, 0)["all_reduces"]
+        np.testing.assert_array_equal(calls, turn(got, 0)["all_reduces_min"])
+        assert len(set(calls.tolist())) == 1 and calls[0] > 0
+        for k in ("gates", "truncated", "num_valid", "count") + tuple(
+                f"lo_{k}" for k in range(TCFG.map.levels)):
+            np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+        np.testing.assert_allclose(got["poses"][-1], ref["poses"], rtol=0,
+                                   atol=POSE_M if got is fleet else 0)
     # steps where a group's gate fired and steps where none did: a row of
     # the per-robot mesh, every rank of the shared fleet
     rows = fleet["gates"].reshape(STEPS, robot_axis, -1).any(-1)
@@ -242,11 +280,11 @@ def test_compiled_route_rehearsed_on_four_ranks(four_ranks):
     step; ``shard_hypotheses`` through ``match_hypotheses_jit``."""
     for got in (four_ranks["fleet"], four_ranks["shared"]):
         assert list(got["routes"]) == list(FOUR_RANK_ROUTES)
+        _equal_turns(got, 1, 0)
         _equal_turns(got, 2, 0)
-        _equal_turns(got, 3, 0)
         assert [int(turn(got, i)["captures"])
-                for i in range(4)] == [0, 0, 4, 0]
-        assert int(got["t3_pool_bytes"]) == 0   # the stand-in has no pool
+                for i in range(3)] == [0, 4, 0]
+        assert int(got["t2_pool_bytes"]) == 0   # the stand-in has no pool
     hyp = four_ranks["hypotheses"]
     assert int(hyp["captures"]) == 4 and int(hyp["later_captures"]) == 0
     assert int(hyp["t1_captures"]) == 0
@@ -278,9 +316,9 @@ def _start(inputs):
 
 def test_gloo_group_keeps_the_eager_route(inputs, one_rank, monkeypatch):
     """The route is the group's backend's: with blocks taken for the
-    card's, a gloo group still runs the eager steps (no graph is
+    card's, a gloo group still runs the steps eagerly (no graph is
     entered); the same steps on a group taken as NCCL enter the graph
-    path, and both are bit-equal to the eager steps. A capture that
+    path, and both are bit-equal to the unsharded steps. A capture that
     fails there raises: the step does not fall back to the eager one."""
     mesh = one_rank
     assert dist.get_backend(mesh.group) == "gloo"
@@ -354,16 +392,14 @@ def test_sharded_bodies_make_no_host_round_trip(inputs, one_rank):
     from test_torch_queries_compiled import no_syncing_ops
     mesh = one_rank
     scans, fleet, shared = _start(inputs)
-    fleet, _ = batch.fleet_step_sync_free(fleet, scans[0], TCFG,
-                                          beam_axis=mesh.beam_group)
-    shared, _ = shared_map.shared_fleet_step_sync_free(
-        shared, scans[0], TCFG, robot_axis=mesh.group)
+    fleet, _ = ht.fleet_step(fleet, scans[0], TCFG, beam_axis=mesh.beam_group)
+    shared, _ = ht.shared_fleet_step(shared, scans[0], TCFG,
+                                     robot_axis=mesh.group)
 
     def bodies():
-        yield batch.fleet_step_sync_free(fleet, scans[1], TCFG,
-                                         beam_axis=mesh.beam_group)
-        yield shared_map.shared_fleet_step_sync_free(
-            shared, scans[1], TCFG, robot_axis=mesh.group)
+        yield ht.fleet_step(fleet, scans[1], TCFG, beam_axis=mesh.beam_group)
+        yield ht.shared_fleet_step(shared, scans[1], TCFG,
+                                   robot_axis=mesh.group)
 
     warm = list(bodies())
     with no_host_reads(), no_syncing_ops():
@@ -373,14 +409,14 @@ def test_sharded_bodies_make_no_host_round_trip(inputs, one_rank):
             s1.log_odds + (s1.pose, s1.map_update_count),
             s2.log_odds + (s2.pose, s2.map_update_count)))
         assert all(torch.equal(a, b) for a, b in zip(m1, m2))
-    # the control: the eager sharded steps' gate reads are refused
-    for eager in (lambda: ht.fleet_step(fleet, scans[1], TCFG,
-                                        beam_axis=mesh.beam_group),
-                  lambda: ht.shared_fleet_step(shared, scans[1], TCFG,
-                                               robot_axis=mesh.group)):
+    # the control: a caller that reads the steps' gates on the host
+    for step in (lambda: ht.fleet_step(fleet, scans[1], TCFG,
+                                       beam_axis=mesh.beam_group),
+                 lambda: ht.shared_fleet_step(shared, scans[1], TCFG,
+                                              robot_axis=mesh.group)):
         with no_host_reads(), pytest.raises(AssertionError,
                                             match="host round trip"):
-            eager()
+            bool(step()[1].map_updated.any())
 
 
 # ---- tests/test_parallel.py mirrored against the bodies --------------------

@@ -146,7 +146,7 @@ def test_shared_map_fleet_per_robot_gating():
     quads = tstate.quads
     assert not step(moved, 2).any()
     assert int(tstate.map_update_count) == count1 + 1
-    assert all(a is b for a, b in zip(tstate.quads, quads))
+    assert all(torch.equal(a, b) for a, b in zip(tstate.quads, quads))
     assert _counts(tstate.log_odds) == _counts(jstate.log_odds)
 
 

@@ -26,7 +26,6 @@ import torch
 import hector_slam_tpu_torch as ht
 from hector_slam_tpu_torch import tracing
 from hector_slam_tpu_torch.core import graphs
-from hector_slam_tpu_torch.core.slam import slam_step_sync_free
 from hector_slam_tpu_torch.io.simulator import (World, corridor_trajectory,
                                                 simulate_trajectory)
 from test_torch_graphs_replay import as_on_card  # noqa: F401 (fixture)
@@ -167,7 +166,7 @@ def test_counters_count_scans_updates_and_gates(ranges, fresh):
         assert c[name] == SCANS
         assert c[name + ".timed"] == SCANS - 2
         assert c[name + ".ns"] > 0
-    # the CPU session runs the sync-free step eagerly: one update body a
+    # the CPU session runs the step body eagerly: one update body a
     # scan, and the session reads each scan's gate
     assert c["update.runs"] == SCANS
     assert c["update.gated"] == int(session.state.map_update_count)
@@ -328,7 +327,7 @@ def test_card_step_counts_launches_and_updates(cuda_device, ranges, fresh):
              for r in ranges]
     eager = ht.init_state(CFG, cuda_device)
     before = graphs._counts()
-    eager, _ = slam_step_sync_free(eager, scans[0], CFG)
+    eager, _ = ht.slam_step(eager, scans[0], CFG)
     one_step = {k: n - before[k] for k, n in graphs._counts().items()}
     runs0 = tracing.counters()["update.runs"]
     session = ht.SlamSession(CFG, LASER, device=cuda_device)

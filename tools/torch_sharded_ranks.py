@@ -18,18 +18,17 @@ place, so a compiled step replays the graph it captured):
   - "step": the library's sharded step (``make_fleet_step``,
     ``make_shared_fleet_step``): a CUDA graph with the group's
     all-reduces inside on an NCCL group with the blocks on the card, the
-    eager step otherwise;
-  - "eager": the eager sharded step (``fleet_step``/``shared_fleet_step``
-    given the group): the update and its collectives only where the
-    group's gate fired;
-  - "sync_free": the compiled step's body (``fleet_step_sync_free``/
-    ``shared_fleet_step_sync_free`` given the group), run eagerly.
+    step run eagerly otherwise;
+  - "eager": the step's body (``fleet_step``/``shared_fleet_step`` given
+    the group) run eagerly, the update and its collectives on every step.
 Turn 0's fields are written under their names, turn i's with the prefix
 ``t<i>_``: the steps' poses, gates and counts, the final levels
 ``lo_<k>``, the launches of each CUDA kernel counted in the ranks (summed
-over them), the graph captures of the turn (summed), the stream syncs of
-its last step (the most of any rank; counted on the card only), the
-graph's pool bytes (rank 0's) and the host seconds of the steps after
+over them), the graph captures of the turn (summed), the all-reduces
+issued from Python in each step (the most and the fewest of any rank; a
+graph's replay issues its captured ones and counts none), the stream
+syncs of its last step (the most of any rank; counted on the card only),
+the graph's pool bytes (rank 0's) and the host seconds of the steps after
 the first (the first, from empty maps, is a warm-up): rank 0's and the
 slowest rank's.
 
@@ -65,6 +64,7 @@ fails.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -88,9 +88,9 @@ from hector_slam_tpu_torch.core.collectives import psum  # noqa: E402
 from hector_slam_tpu_torch.ops import interp_moments, paint_cells  # noqa
 from hector_slam_tpu_torch.ops.map_tail import map_tail  # noqa: E402
 from hector_slam_tpu_torch.parallel.batch import (  # noqa: E402
-    fleet_step, fleet_step_sync_free, init_fleet, match_hypotheses)
+    fleet_step, init_fleet, match_hypotheses)
 from hector_slam_tpu_torch.parallel.shared_map import (  # noqa: E402
-    init_shared_fleet, shared_fleet_step, shared_fleet_step_sync_free)
+    init_shared_fleet, shared_fleet_step)
 from hector_slam_tpu_torch.parallel.sharded import (  # noqa: E402
     _block, gather_fleet_state, gather_rows, gather_shared_fleet_state,
     make_fleet_step, make_mesh, make_shared_fleet_step, shard_fleet_state,
@@ -159,9 +159,7 @@ def fleet_routes(mesh, cfg):
     """The per-robot fleet's routes on this rank's mesh."""
     group = mesh.beam_group
     return {"step": make_fleet_step(mesh, cfg),
-            "eager": lambda st, sc: fleet_step(st, sc, cfg, beam_axis=group),
-            "sync_free": lambda st, sc: fleet_step_sync_free(
-                st, sc, cfg, beam_axis=group)}
+            "eager": lambda st, sc: fleet_step(st, sc, cfg, beam_axis=group)}
 
 
 def shared_routes(mesh, cfg):
@@ -169,24 +167,41 @@ def shared_routes(mesh, cfg):
     group = mesh.group
     return {"step": make_shared_fleet_step(mesh, cfg),
             "eager": lambda st, sc: shared_fleet_step(st, sc, cfg,
-                                                      robot_axis=group),
-            "sync_free": lambda st, sc: shared_fleet_step_sync_free(
-                st, sc, cfg, robot_axis=group)}
+                                                      robot_axis=group)}
+
+
+@contextlib.contextmanager
+def counting_all_reduces(calls):
+    """Inside the block every ``dist.all_reduce`` (the one collective of
+    core/collectives.py) adds 1 to ``calls[-1]``."""
+    real = dist.all_reduce
+
+    def counted(*args, **kwargs):
+        calls[-1] += 1
+        return real(*args, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        yield
+    finally:
+        dist.all_reduce = real
 
 
 def _steps(step, state, scans, device):
     """Runs ``step`` over the scans with the kernel counts set to 0 first.
     Returns (state, metrics per step, poses per step, seconds of the
     steps after the first, launches in this rank, the stream syncs of
-    the last step on the card or -1)."""
+    the last step on the card or -1, the all-reduces of each step)."""
     for k in KERNELS.values():
         k.launches = 0
-    metrics, poses, t0, syncs = [], [], None, -1
+    metrics, poses, t0, syncs, calls = [], [], None, -1, []
     for t, sc in enumerate(scans):
-        if t == len(scans) - 1 and torch.device(device).type == "cuda":
-            (state, m), syncs = count_syncs(lambda: step(state, sc))
-        else:
-            state, m = step(state, sc)
+        calls.append(0)
+        with counting_all_reduces(calls):
+            if t == len(scans) - 1 and torch.device(device).type == "cuda":
+                (state, m), syncs = count_syncs(lambda: step(state, sc))
+            else:
+                state, m = step(state, sc)
         metrics.append(m)
         poses.append(state.pose.clone())   # a compiled step reuses it
         if t == 0:
@@ -194,8 +209,8 @@ def _steps(step, state, scans, device):
             t0 = time.perf_counter()
     _sync(device)
     seconds = time.perf_counter() - t0
-    return state, metrics, poses, seconds, {n: k.launches
-                                            for n, k in KERNELS.items()}, syncs
+    return state, metrics, poses, seconds, {
+        n: k.launches for n, k in KERNELS.items()}, syncs, calls
 
 
 def _reduced(values, mesh, device, op):
@@ -222,18 +237,21 @@ def _turns(routes, steps, start, scans, device, mesh, graph):
             for dst, src in zip(_leaves(state), _leaves(start)):
                 dst.copy_(src)
         captures = graphs.totals()["captures"]
-        state, metrics, poses, seconds, launches, syncs = _steps(
+        state, metrics, poses, seconds, launches, syncs, calls = _steps(
             steps[route], state, scans, device)
         kept[route] = state
         summed = _reduced([graphs.totals()["captures"] - captures]
                           + [launches[n] for n in KERNELS], mesh, device,
                           dist.ReduceOp.SUM)
-        slowest, syncs = _reduced([seconds, syncs], mesh, device,
-                                  dist.ReduceOp.MAX)
+        slowest, syncs, *most = _reduced([seconds, syncs] + calls, mesh,
+                                         device, dist.ReduceOp.MAX)
+        fewest = _reduced(calls, mesh, device, dist.ReduceOp.MIN)
         if mesh.rank == 0:
             _log(f"{graph} on {mesh.size} ranks: turn {i} ({route}) done")
         info = dict(route=route, seconds=seconds, seconds_max=slowest,
                     captures=int(summed[0]), syncs=int(syncs),
+                    all_reduces=[int(c) for c in most],
+                    all_reduces_min=[int(c) for c in fewest],
                     pool_bytes=_pool(graph),
                     **{f"launches_{n}": int(c)
                        for n, c in zip(KERNELS, summed[1:])})
