@@ -135,7 +135,14 @@ the main path through the entry points a user calls:
      its plain version and to the chain it replaced, with 1 and 8 of 8
      robots gated; the log-odds pair's time with 0, 1 and 8 gated (one
      map: 0 and 1) beside the bytes bound, the plain version's and the
-     chain's;
+     chain's; then robot match — the SLAM step's matcher level as one
+     launch (ops/robot_match.py) at TUTORIAL_CONFIG, level by level, for
+     one robot (live40's inputs), 8 robots on 8 maps (fleet40's) and 8
+     on one shared map: estimates within LEVEL_EST_TOL of its plain loop,
+     H within REL_TOL of the plain moments at its last step's start,
+     every fleet robot bit-equal to its solo launch, two launches
+     bit-identical; its time beside the plain loop's and the bound (the sequential replay of 4 counts its launches: one
+     a level a scan);
  11. probes — the cost probes of tools/probe_pallas.py and
      tools/probe_mosaic_store.py at their own shapes, driven through
      hector_slam_tpu_torch.probes (take_along over 64 [8,128] tiles on both
@@ -164,7 +171,9 @@ the main path through the entry points a user calls:
      beside JAX's answers: the sigma-point covariance (within 1e-5 of
      max|cov|, exactly symmetric) and likelihood (within 1e-6) at the
      final pose with the last scan; match_pyramid_debug of that scan
-     (pose within 1e-4 of JAX's and bit-equal to match_pyramid's; each
+     (pose within 1e-4 of JAX's and bit-equal to match_pyramid's traced
+     route, the torch ops; match_pyramid's robot kernel route within
+     1e-4 of JAX's too; each
      Hessian within 1e-5 of its max|H|, determinants within 1e-4 and
      condition numbers within 1e-3 relative); distance_to_obstacle_batch
      over 65,536 rays of up to 1,024 cells and the scalar raycasts,
@@ -679,6 +688,10 @@ def phase_sequential(kernels):
           and np.isfinite(poses).all() and poses.shape == ref["poses"].shape
           and launches["paint_cells"] == paints
           and xla_launches["paint_cells"] == paints and replays_equal
+          # the matcher: one robot kernel launch a level a scan
+          and launches["robot_match_level"] == cfg.map.levels * paints
+          and xla_launches["robot_match_level"] == cfg.map.levels * paints
+          and launches["interp_moments_level"] == 0
           # the seg route's fallback is chosen on the device: it syncs
           # where the dense route does and nowhere else
           and all(syncs["seg"][k] == syncs["xla"][k]
@@ -1701,6 +1714,7 @@ def phase_graphs(dev, kernels, sequential, hyp_inputs, fleet, shared):
     checks["run_log_launches"] = (
         seq_graph["per_replay"] == {"interp_moments": 0,
                                     "interp_moments_level": 0,
+                                    "robot_match_level": cfg.map.levels,
                                     "paint_cells": 1, "map_tail": 2}
         and g1["replays"] - g0["replays"] == n
         and g1["captures"] - g0["captures"] == 1
@@ -1776,8 +1790,8 @@ def phase_graphs(dev, kernels, sequential, hyp_inputs, fleet, shared):
     [kgraph] = stats_of("match_hypotheses_kernel_jit")
     [pgraph] = stats_of("match_hypotheses_jit")
     checks["kernel_route_launches"] = kgraph["per_replay"] == {
-        "interp_moments": 0, "interp_moments_level": 3, "paint_cells": 0,
-        "map_tail": 0}
+        "interp_moments": 0, "interp_moments_level": 3,
+        "robot_match_level": 0, "paint_cells": 0, "map_tail": 0}
     out["batched"] = dict(
         hypotheses=hyp.shape[0], kernel_graph=kgraph, plain_graph=pgraph,
         plain_hypotheses=256, ms_per_call_in_call_order=[
@@ -1833,7 +1847,8 @@ def phase_graphs(dev, kernels, sequential, hyp_inputs, fleet, shared):
     paints["shared_fleet"] = read_counts(kernels)["paint_cells"] - marks
     for name in ("fleet", "shared_fleet"):
         checks[f"{name}_launches"] = out[name]["graph"]["per_replay"] == {
-            "interp_moments": 0, "interp_moments_level": 0, "paint_cells": 1,
+            "interp_moments": 0, "interp_moments_level": 0,
+            "robot_match_level": cfg.map.levels, "paint_cells": 1,
             "map_tail": 2}
     launches = read_counts(kernels)
     graphs.clear()
@@ -2108,6 +2123,136 @@ def phase_map_tail(dev):
     return rows, max_err
 
 
+def robot_match_inputs(dev, robots, maps):
+    """The robot kernel's inputs at TUTORIAL_CONFIG, level by level: a
+    2048^2 x 2 pyramid mapped from the first 10 simulated UTM-30LX scans of
+    the four-room loop at their true poses; ``robots`` scans of the lap
+    beyond them, each matched from its true pose moved 2 cm and 0.01 rad;
+    ``maps`` "one" (the mapped grid shared, or one robot's own) or
+    "per_robot" (a copy a robot, robot r's moved r cells along x, its
+    estimate with it). Returns (cfg, [(quads, shape, est, points, mask,
+    steps)] coarse to fine)."""
+    import hector_slam_tpu_torch as ht
+    from hector_slam_tpu_torch.core.grid import world_to_map_pose
+    from hector_slam_tpu_torch.core.matcher import level_points
+    from hector_slam_tpu_torch.io.simulator import (World, loop_trajectory,
+                                                    simulate_trajectory)
+    cfg = ht.TUTORIAL_CONFIG
+    laser = ht.LaserModel()
+    poses = loop_trajectory(754)[:10 + robots]
+    ranges = simulate_trajectory(World.multi_room(), poses, laser,
+                                 range_noise_std=0.01)
+    scans = [ht.scan_from_ranges(r, cfg.map.level_scale(0), laser,
+                                 cfg.max_beams, device=dev) for r in ranges]
+    state = ht.init_state(cfg, device=dev)
+    for sc, pose in zip(scans[:10], poses[:10]):
+        state, _ = ht.slam_step(state, sc, cfg, pose_hint=torch.from_numpy(
+            pose).to(dev), map_without_matching=True)
+    start = torch.from_numpy(poses[10:]).to(dev) + torch.tensor(
+        [0.02, -0.02, 0.01], device=dev)
+    out = []
+    for level in range(cfg.map.levels - 1, -1, -1):
+        shape = tuple(state.log_odds[level].shape)
+        quad = state.quads[level]
+        est = world_to_map_pose(start, cfg.map.top_left_offset,
+                                cfg.map.level_scale(level)).contiguous()
+        if maps == "per_robot":
+            quad = torch.stack([torch.roll(quad.reshape(shape + (4,)), r,
+                                           dims=1).reshape(-1, 4)
+                                for r in range(robots)])
+            est[:, 0] += torch.arange(robots, device=dev)
+        points = torch.stack([level_points(s.points, level)
+                              for s in scans[10:]]).contiguous()
+        mask = torch.stack([s.mask for s in scans[10:]]).contiguous()
+        steps = (cfg.match.iterations_finest if level == 0
+                 else cfg.match.iterations_coarse) + 1
+        out.append((quad.contiguous(), shape, est, points, mask, steps))
+    return cfg, out
+
+
+def robot_match_bound_ms(args):
+    """Least time the card could take for one robot_match_level call on
+    these inputs: each step's moments bound (kernel_bound_ms, robot by
+    robot on its own grid) plus each robot's update, every step."""
+    from hector_slam_tpu_torch.ops.interp_moments import interp_moments_plain
+    quad, shape, est, points, mask, steps = args
+    per_step = 0.0
+    for r in range(est.shape[0]):
+        q = quad[r] if quad.dim() == 3 else quad
+        one = (q, shape, est[r:r + 1], points[r], mask[r])
+        used = interp_moments_plain(*one).used
+        per_step += max(kernel_bound_ms(*one, used))
+    return steps * (per_step + est.shape[0] * SOLVE_OPS / F32_OPS_PER_S
+                    * 1e3)
+
+
+def phase_robot_match(dev):
+    """The SLAM step's matcher level as one launch a level
+    (ops/robot_match.py) at TUTORIAL_CONFIG's widths, level by level: one
+    robot (live40's inputs), 8 robots on 8 maps (fleet40's) and on one
+    shared map. At each, the kernel held to its plain version (the torch
+    loop on the card): estimates within LEVEL_EST_TOL (map cells, rad),
+    H within REL_TOL of the plain moments at the kernel's own last step's
+    start; every fleet robot bit-equal to its solo launch, two launches
+    bit-identical. Then its device time (one robot and fleet40's 8),
+    beside the plain loop's and the bound."""
+    from hector_slam_tpu_torch.core.interp import hessian_derivs_quad
+    from hector_slam_tpu_torch.ops import robot_match as rm
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    rows, checks = [], {}
+    for name, robots, maps in (("live40", 1, "one"),
+                               ("fleet40", 8, "per_robot"),
+                               ("shared8", 8, "one")):
+        cfg, levels = robot_match_inputs(dev, robots, maps)
+        for args in levels:
+            quad, shape, est, points, mask, steps = args
+            got = rm.robot_match_level(*args)
+            want = rm.robot_match_level_plain(*args)
+            start = rm.robot_match_level(*args[:5], steps - 1)[0]
+            hess = hessian_derivs_quad(quad, shape, start, points, mask)[0]
+            hess_rel = level_err(got, (got[0], hess))[1]
+            loop_gap = level_err(got, want)[0]
+            again = rm.robot_match_level(*args)
+            solo = []
+            for r in range(robots):
+                q = quad[r].contiguous() if quad.dim() == 3 else quad
+                one = rm.robot_match_level(q, shape, est[r:r + 1],
+                                           points[r:r + 1], mask[r:r + 1],
+                                           steps)
+                solo.append(torch.equal(bits(one[0][0]), bits(got[0][r]))
+                            and torch.equal(bits(one[1][0]),
+                                            bits(got[1][r])))
+            key = f"{name}_{shape[0]}"
+            checks[key] = (loop_gap <= LEVEL_EST_TOL and hess_rel <= REL_TOL
+                           and all(solo) and bool(torch.isfinite(
+                               got[0]).all())
+                           and torch.equal(bits(again[0]), bits(got[0]))
+                           and torch.equal(bits(again[1]), bits(got[1])))
+            row = dict(case=name, robots=robots, maps=maps,
+                       shape=list(shape), gn_steps=steps,
+                       valid_beams=int(mask.sum()) // robots,
+                       max_est_err=loop_gap, max_hess_rel_err=hess_rel,
+                       solo_bit_equal=all(solo))
+            if name != "shared8":
+                row.update(device_times(
+                    ms=(lambda: rm.robot_match_level(*args), 50),
+                    plain_ms=(lambda: rm.robot_match_level_plain(*args), 3)))
+                row["bound_ms"] = robot_match_bound_ms(args)
+            rows.append(row)
+        del levels
+        torch.cuda.empty_cache()
+    ok = all(checks.values())
+    emit("robot_match", ok=ok, checks=checks, card=card_line(), rows=rows)
+    if not ok:
+        raise SystemExit("robot_match disagrees with its plain version or "
+                         "with its solo launches: " + ", ".join(
+                             k for k, v in checks.items() if not v))
+    return rows
+
+
 def phase_probes(dev, kernels):
     """The probe entry point at the TPU probes' shapes, then each workload
     held against its plain version. Returns (launches, rows)."""
@@ -2237,8 +2382,9 @@ def phase_queries(dev, kernels, shared_state):
     service distances, and save_state -> load_state round trips of the
     session state and of the 64-robot shared fleet's final state. Times
     are per call (CUDA events, host-fed; the scalar queries and the
-    checkpoints on the host clock). Returns the path's launches (no kernel
-    runs here)."""
+    checkpoints on the host clock). Returns the path's launches: the
+    robot kernel's, once a level in each match_pyramid call, and no
+    other kernel's."""
     import os
     import tempfile
 
@@ -2263,6 +2409,10 @@ def phase_queries(dev, kernels, shared_state):
                                               cfg, quads=state.quads)
     matched = ht.match_pyramid(state.log_odds, start, scan, cfg,
                                quads=state.quads)
+    # the debug match traces every GN step's H, so it takes the torch
+    # route, which match_pyramid takes when traced
+    matched_torch = ht.match_pyramid(state.log_odds, start, scan, cfg,
+                                     quads=state.quads, trace=[])
     occ = ht.to_occupancy_grid_tensor(lo0)
     begins = torch.from_numpy(ref["ray_begins"]).to(dev)
     ends = torch.from_numpy(ref["ray_ends"]).to(dev)
@@ -2389,8 +2539,11 @@ def phase_queries(dev, kernels, shared_state):
         "debug_pose": float(np.abs(pose.cpu().numpy()
                                    - ref["debug_pose"]).max())
         <= DEBUG_POSE_M,
-        "debug_bit_equal_match_pyramid": bool(torch.equal(pose,
-                                                          matched.pose)),
+        "debug_bit_equal_match_pyramid": bool(torch.equal(
+            pose, matched_torch.pose)),
+        "match_pyramid_pose": float(np.abs(matched.pose.cpu().numpy()
+                                           - ref["debug_pose"]).max())
+        <= DEBUG_POSE_M,
         "debug_diagnostics": errs["hessian"] <= HESS_REL
         and errs["determinant"] <= DET_REL
         and errs["determinant_2d"] <= DET_REL
@@ -2409,7 +2562,12 @@ def phase_queries(dev, kernels, shared_state):
                                     atol=NORMAL_ABS, equal_nan=True)),
         "round_trips": all(v["bit_equal"] and v["on_card"]
                            for v in round_trips.values()),
-        "no_kernel": not any(launches.values()),
+        # match_pyramid's calls match through the robot kernel, once a
+        # level; no other kernel runs here
+        "kernels": launches["robot_match_level"] > 0
+        and launches["robot_match_level"] % cfg.map.levels == 0
+        and not any(n for k, n in launches.items()
+                    if k != "robot_match_level"),
         **graph_checks,
     }
     ok = all(checks.values())
@@ -2721,9 +2879,11 @@ def run_paths(dev):
     from hector_slam_tpu_torch.ops.matmul_stationary import matmul_stationary
     from hector_slam_tpu_torch.ops.paint_cells import paint_cells
     from hector_slam_tpu_torch.ops.paint_runs import paint_runs
+    from hector_slam_tpu_torch.ops.robot_match import robot_match_level
     from hector_slam_tpu_torch.ops.take_along import take_along
     kernels = {"interp_moments": interp_moments,
                "interp_moments_level": interp_moments_level,
+               "robot_match_level": robot_match_level,
                "paint_cells": paint_cells, "map_tail": map_tail,
                "take_along": take_along,
                "matmul_stationary": matmul_stationary,
@@ -2750,6 +2910,7 @@ def run_paths(dev):
     paint_inputs.update(sharded_paint_inputs(fleet_first, shared_first))
     paint_rows, paint_bad = phase_paint(dev, paint_inputs)
     tail_rows, tail_err = phase_map_tail(dev)
+    robot_rows = phase_robot_match(dev)
     paths["probes"], probe_rows, long_lines = phase_probes(dev, kernels)
     paths["queries"] = phase_queries(dev, kernels, shared_state)
     del shared_state
@@ -2861,7 +3022,27 @@ def run_paths(dev):
          "per_call": "fleet40's update, 1 of 8 tutorial pyramids gated; "
                      "chain_ms: the torch ops it replaced, write-back "
                      "included",
-         "timed": tail_rows}]
+         "timed": tail_rows},
+        {"name": "robot_match",
+         "route": "cuda",
+         "source": pdir + "robot_match.cu",
+         "replaces": "hector_slam_tpu/ops/pallas_interp.py:337",
+         "replaces_note": "the same TPU kernel as interp_moments, on the "
+                          "SLAM step's paths: a block a robot",
+         "launches": sum(by_path("robot_match_level").values()),
+         "launches_by_path": by_path("robot_match_level"),
+         "max_est_err": max(r["max_est_err"] for r in robot_rows),
+         "max_hess_rel_err": max(r["max_hess_rel_err"] for r in robot_rows),
+         "ms": sum(r["ms"] for r in robot_rows if r["case"] == "live40"),
+         "plain_ms": sum(r["plain_ms"] for r in robot_rows
+                         if r["case"] == "live40"),
+         "bound_ms": sum(r["bound_ms"] for r in robot_rows
+                         if r["case"] == "live40"),
+         "bound_by": "bytes and operations, each step",
+         "library_ms": None,
+         "per_call": "live40's match: both levels of one robot (4 + 6 GN "
+                     "steps), one launch each",
+         "timed": robot_rows}]
 
 
 def main() -> int:

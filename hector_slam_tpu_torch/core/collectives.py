@@ -29,6 +29,12 @@ def captures_collectives(group) -> bool:
     return "nccl" in dist.get_backend(group)
 
 
+def single_rank(group) -> bool:
+    """Whether ``group`` reduces nothing: no axis, or a group of one rank
+    (whose all-reduce returns its input)."""
+    return group is None or dist.get_world_size(group) == 1
+
+
 def psum(t: torch.Tensor, group) -> torch.Tensor:
     """Elementwise sum of ``t`` over the ranks of ``group``, in a new
     tensor."""

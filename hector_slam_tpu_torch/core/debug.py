@@ -88,8 +88,10 @@ def match_pyramid_debug(
     """Full coarse -> fine match returning (pose, final H,
     IterDiagnostics over every GN iteration of every level). It is
     ``match_pyramid`` itself (``quads`` as there) with every GN step's H
-    traced, so the pose is bit-equal to ``match_pyramid``'s on the same
-    inputs."""
+    traced, which takes the matcher's torch loop: the pose is bit-equal to
+    ``match_pyramid``'s on CPU tensors, and on the card to a traced
+    ``match_pyramid``'s (the untraced one runs the robot kernel,
+    ops/robot_match.py, which rounds its sums in another order)."""
     hessians = []
     result = match_pyramid(log_odds_pyramid, begin_estimate_world, scan, cfg,
                            quads=quads, trace=hessians)

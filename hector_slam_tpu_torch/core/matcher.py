@@ -2,8 +2,12 @@
 
 Counterpart of ``hector_slam_tpu/core/matcher.py`` (matcher/ScanMatcher.h:
 54-226 and the multi-map chain of slam_main/MapRepMultiMap.h:116-132).
-The GN steps run as a Python loop of tensor ops with no host sync: the
-guard, clamp and empty-scan rule are ``torch.where`` selects.
+A level of a single pose, or of robots with a scan each, is one launch of
+the robot kernel (``ops/robot_match.py``: every GN step inside it; its
+plain version on CPU tensors is the torch loop below). Hypotheses sharing
+one scan, a beam-sharded scan and a traced match run the GN steps as a
+Python loop of tensor ops. Neither makes a host sync: the guard, clamp
+and empty-scan rule are selects on the device.
 
 Replicated discrete behaviours:
   - (maxIterations + 1) GN steps (ScanMatcher.h:74,94)
@@ -24,10 +28,11 @@ import torch
 
 from ..config import SlamConfig
 from ..types import MatchResult, Scan
+from ..ops.robot_match import robot_match_level
 from ..ops.solve3 import solve3
 from .grid import map_to_world_pose, normalize_angle, world_to_map_pose
 from .cell_models import prob_grid
-from .collectives import por, psum
+from .collectives import por, psum, single_rank
 from .interp import hessian_derivs_quad, quad_pack
 
 _CLAMP = 0.2   # clamp casts it to f32, the JAX np.float32(0.2)
@@ -78,6 +83,17 @@ def finish_level(estimate: torch.Tensor, offset, cell_length):
     return map_to_world_pose(estimate, offset, cell_length)
 
 
+def robot_route(pose: torch.Tensor, points: torch.Tensor, beam_axis,
+                trace) -> bool:
+    """Whether a level runs as one launch of the robot kernel: a single
+    pose (f32[3]) or one scan a pose (``points`` [R, N, 2]), the beams not
+    sharded over a group of more than one rank (each GN step would need
+    its all-reduce), and no trace (it needs every step's H). Hypotheses
+    sharing one scan take the torch loop."""
+    return trace is None and single_rank(beam_axis) and (
+        pose.dim() == 1 or points.dim() == 3)
+
+
 def match_level(
     quad: torch.Tensor,
     shape: Tuple[int, int],
@@ -97,13 +113,23 @@ def match_level(
     ``quad`` is one grid [H*W, 4] or one per pose [B, H*W, 4].
     ``beam_axis``: as in ``gn_step``; a scan is empty when no rank of the
     group holds a valid beam. ``trace``: a list that gets every GN step's
-    H (core/debug.py)."""
+    H (core/debug.py). A level that ``robot_route`` takes is one
+    ``robot_match_level`` launch (a single pose as a batch of one); the
+    rest run ``gn_step`` in a loop."""
     estimate = world_to_map_pose(begin_estimate_world, offset, scale)
-    for _ in range(iterations + 1):
-        estimate, hess = gn_step(quad, shape, estimate, points, mask,
-                                 beam_axis)
-        if trace is not None:
-            trace.append(hess)
+    if robot_route(begin_estimate_world, points, beam_axis, trace):
+        est, hess = robot_match_level(
+            quad.contiguous(), shape, estimate.reshape(-1, 3).contiguous(),
+            points.reshape((-1,) + points.shape[-2:]).contiguous(),
+            mask.reshape((-1, mask.shape[-1])).contiguous(), iterations + 1)
+        estimate = est.reshape(estimate.shape)
+        hess = hess.reshape(estimate.shape[:-1] + (3, 3))
+    else:
+        for _ in range(iterations + 1):
+            estimate, hess = gn_step(quad, shape, estimate, points, mask,
+                                     beam_axis)
+            if trace is not None:
+                trace.append(hess)
     world = finish_level(estimate, offset, cell_length)
     # empty scan: the input pose verbatim (ScanMatcher.h:68,189), per
     # robot when each pose has its own scan

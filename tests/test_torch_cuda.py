@@ -257,6 +257,7 @@ def test_kernel_route_replay_launches_once_a_level_on_card(tutorial_map):
     [entry] = graphs.stats()
     assert entry.per_replay == {"interp_moments": 0,
                                 "interp_moments_level": cfg.map.levels,
+                                "robot_match_level": 0,
                                 "paint_cells": 0, "map_tail": 0}
     mom0, lvl0 = im.interp_moments.launches, im.interp_moments_level.launches
     got, _ = ht.match_hypotheses_kernel_jit(state.log_odds, hyp, scan, cfg,
@@ -1053,9 +1054,10 @@ def test_graph_capture_failure_raises_on_card(cuda_device, monkeypatch):
 @pytest.mark.cuda
 def test_graph_launch_counts_add_up_per_replay_on_card(cuda_device):
     """The kernel wrappers' counters count a graph's warm-up once and its
-    captured launches at every replay: slam_step_jit paints once a scan
-    and launches the map tail's two kernels once a scan (both run on
-    every scan; the tail's blocks return where the gate did not fire),
+    captured launches at every replay: slam_step_jit matches with the
+    robot kernel once a level, paints once a scan and launches the map
+    tail's two kernels once a scan (both run on every scan; the tail's
+    blocks return where the gate did not fire),
     match_hypotheses_kernel_jit launches the moments kernel's level form
     3 times a call at BENCH_CONFIG (once a level, its 14 GN steps inside)
     and the moments-only form never."""
@@ -1071,9 +1073,11 @@ def test_graph_launch_counts_add_up_per_replay_on_card(cuda_device):
         state, _ = ht.slam_step_jit(state, sc, cfg)
     [step] = graphs.stats()
     assert step.per_replay == {"interp_moments": 0,
-                               "interp_moments_level": 0, "paint_cells": 1,
-                               "map_tail": 2}
+                               "interp_moments_level": 0,
+                               "robot_match_level": cfg.map.levels,
+                               "paint_cells": 1, "map_tail": 2}
     assert step.warmup == {"interp_moments": 0, "interp_moments_level": 0,
+                           "robot_match_level": cfg.map.levels,
                            "paint_cells": 1, "map_tail": 2}
     assert step.replays == 10 and step.pool_bytes > 0
     assert pc.paint_cells.launches - paint0 == 1 + 10

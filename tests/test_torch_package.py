@@ -101,18 +101,21 @@ def test_jax_only_names_are_the_documented_not_ported_list():
 
 
 def test_every_kernel_source_has_a_counted_wrapper():
-    """Each csrc/<name>.cu has a wrapper ops/<name>.py:<name> carrying the
-    integer launch count chip_smoke.py reads, and a plain version."""
+    """Each csrc/<name>.cu has a wrapper ops/<name>.py:<wrapper> (named
+    <name>, or as below) carrying the integer launch count chip_smoke.py
+    reads, and a plain version <wrapper>_plain."""
     import importlib
     from hector_slam_tpu_torch.ops import cuda_build
     names = cuda_build.sources()
     assert set(names) == {"interp_moments", "paint_cells", "take_along",
                           "matmul_stationary", "dyn_slice", "paint_runs",
-                          "map_tail"}
+                          "map_tail", "robot_match"}
+    wrappers = {"robot_match": "robot_match_level"}
     for name in names:
         mod = importlib.import_module(f"hector_slam_tpu_torch.ops.{name}")
-        assert isinstance(getattr(mod, name).launches, int)
-        assert callable(getattr(mod, f"{name}_plain"))
+        wrapper = wrappers.get(name, name)
+        assert isinstance(getattr(mod, wrapper).launches, int)
+        assert callable(getattr(mod, f"{wrapper}_plain"))
 
 
 @pytest.fixture

@@ -87,6 +87,7 @@ from hector_slam_tpu_torch.core import graphs  # noqa: E402
 from hector_slam_tpu_torch.core.collectives import psum  # noqa: E402
 from hector_slam_tpu_torch.ops import interp_moments, paint_cells  # noqa
 from hector_slam_tpu_torch.ops.map_tail import map_tail  # noqa: E402
+from hector_slam_tpu_torch.ops.robot_match import robot_match_level  # noqa
 from hector_slam_tpu_torch.parallel.batch import (  # noqa: E402
     fleet_step, init_fleet, match_hypotheses)
 from hector_slam_tpu_torch.parallel.shared_map import (  # noqa: E402
@@ -99,6 +100,7 @@ from hector_slam_tpu_torch.parallel.sharded import (  # noqa: E402
 from hector_slam_tpu_torch.types import Scan, SlamState  # noqa: E402
 
 KERNELS = {"interp_moments": interp_moments.interp_moments,
+           "robot_match_level": robot_match_level,
            "paint_cells": paint_cells.paint_cells, "map_tail": map_tail}
 SHARED_REFERENCE = ROOT / "tests" / "fixtures" / "shared_fleet_jax_reference.npz"
 ROBOTS = 64              # BASELINE config 5
