@@ -16,30 +16,32 @@ the main path through the entry points a user calls:
      1e-5 of each hypothesis's largest |moment|, used counts exactly
      equal, two launches bit-identical;
   4. sequential SLAM — the 435-scan corridor fixture on BENCH_CONFIG
-     through run_log (on the card each map update paints the
-     segment-compacted free sets, the dense fallback chosen on the
-     device), held against the committed JAX reference trajectory
+     through run_log (on the card each map update is one raster_paint
+     launch, whichever free-set layout is named), held against the
+     committed JAX reference trajectory
      (tests/fixtures/corridor_jax_reference.npz): every gate equal, equal
-     update counts, pose RMSE < 5 mm; one paint launch a scan (its six
-     cell sets in one table; the update runs on every scan and the gate
-     selects); then the same scans twice through
-     slam_step(raster_backend="xla") (the dense sets) and once more with
-     the default: poses, gates and final maps bit-equal, one paint launch
-     a scan; ms and scans/s of each replay in call order, and each
+     update counts, pose RMSE < 5 mm; one raster_paint launch a scan
+     (every level's cells stored straight into the grids; the update
+     runs on every scan and the gate selects) and no paint_cells launch;
+     then the same scans twice through
+     slam_step(raster_backend="xla") and once more with the default:
+     poses, gates and final maps bit-equal, one raster_paint launch a
+     scan; ms and scans/s of each replay in call order, and each
      route's stream syncs per gated update and per other scan (torch's
      CUDA sync debug mode, over the first SYNC_COUNT_SCANS scans,
      untimed; the two routes' equal); then seg vs dense: a
      mid-log gated update level by level, the compacted free set within
      its budget and past FORCED_BUDGET (the dense fallback) against the
-     dense set, painted grids, occupied sets and truncated counts equal;
+     dense set, painted by paint_cells (rasterize_scan_seg and
+     rasterize_scan), painted grids, occupied sets and truncated counts equal;
      segments, budget, slots and index bytes per level, and the whole
      update_pyramid call of each route, host-fed, in turns;
   5. session — the SlamSession entry point on the same fixture, stamps
      t x 0.025 s: session A (timing_mode "step") through process_ranges,
      which replays slam_step_jit's CUDA graph, poses bit-equal to
      run_log's, gates and RMSE as in 4, one capture and one replay a
-     scan, one paint launch a scan (the compiled step updates on every
-     scan and the gate selects) and one in the capture's warm-up;
+     scan, one raster_paint launch a scan (the compiled step updates on
+     every scan and the gate selects) and one in the capture's warm-up;
      session B ("phases", 100 scans: match_phase_jit, update_phase_jit)
      bit-equal to A; A kidnapped by (+0.6 m, -0.5 m, +0.25 rad) and recovered by
      relocalize (n = 1024: "quad" through match_hypotheses_jit, then the
@@ -93,20 +95,21 @@ the main path through the entry points a user calls:
      robot on its own simulated corridor trajectory, 25 steps: robots 0,
      21, 42 and 63 replayed alone through slam_step must agree bit for bit
      (gates, poses, every level's map); steps/s over steps 1-24 (step 0,
-     from empty maps, is an untimed warm-up); one paint launch a step;
+     from empty maps, is an untimed warm-up); one raster_paint launch a
+     step;
   8. shared fleet — shared_fleet_step with 64 robots in one BENCH_CONFIG
      pyramid, replaying the committed JAX reference's 16 steps
      (tests/fixtures/shared_fleet_jax_reference.npz, written by
      tools/make_torch_fleet_reference.py): gates equal for every robot
      and step, equal update counts, pose RMSE < 1e-4 m, each level's
      counts of cells > 0 and < 0 equal; steps/s over steps 1-15; one
-     paint launch a step;
+     raster_paint launch a step;
   9. graphs — the compiled entry points as CUDA graphs
      (hector_slam_tpu_torch/core/graphs.py), each bit-equal to the eager
      function it compiles on the inputs above: run_log_jit on the 435
      scans against run_log (poses, metrics, final state; the caller's
      state not donated), the JAX reference's gates (435/435) and RMSE
-     < 5 mm, one capture, 435 replays of one paint launch each, no
+     < 5 mm, one capture, 435 replays of one raster_paint launch each, no
      stream sync in a whole call (sync debug mode); scans/s in turns
      (run_log, run_log_jit, run_log_jit, run_log) and 40 scans of each
      route under torch.profiler (device ms, device operations and host
@@ -114,22 +117,32 @@ the main path through the entry points a user calls:
      workload (3 level-form launches a replay) and match_hypotheses_jit
      on 256 of its hypotheses, ms per call in turns; fleet_step_jit and
      shared_fleet_step_jit over the fleet phases' steps (poses, gates,
-     final states bit-equal; one paint launch a replay), robot-scans/s
-     in turns (the fleet phase's eager run, graphed, graphed, eager);
+     final states bit-equal; one raster_paint launch a replay),
+     robot-scans/s in turns (the fleet phase's eager run, graphed,
+     graphed, eager);
      each graph's launches per replay, warm-up launches and pool bytes;
  10. paint vs plain — paint_cell_sets at the probe's own workload (1024^2,
-     65,536 random cells), at one update of each of the three
-     map-update paths above (its six cell sets; the sequential update
-     as the dense sets and as run_log, the session and the compiled steps
-     of phase 9 paint it, ``sequential_seg``: each free set the compacted
-     one followed by the dense one, the unchosen one all sentinels) and
+     65,536 random cells), at the index sets of one update of each of
+     the three map-update paths above, as they painted them before
+     raster_paint (its six cell sets; the sequential update as the dense
+     sets and, ``sequential_seg``, each free set the compacted one
+     followed by the dense one, the unchosen one all sentinels) and
      at one rank's first update in phase 13 (row 0, column 0: 32 robots x 576 beams into
      their own grids, 16 robots x 1,152 beams into the shared one, the
      blocks shard_scan and shard_shared_fleet_scan give it): grids
      exactly equal to the plain version's, two launches bit-identical,
      and the update's time as one call (one fill, one launch) and as six
      one-set calls, beside the plain version's, index_put_'s and the
-     bytes bound; then map tail — the map update's tail kernel pair
+     bytes bound; then raster paint — the map update's rasterization
+     and paint in one launch (ops/raster_paint.py) at live40's and
+     fleet40's inputs (TUTORIAL_CONFIG: one scan; 8 robots on 8 maps, 1
+     and 8 gated; the 8 on one map; a quarter of their beams) and at one
+     update of each SLAM path above: grids and truncated counts exactly
+     equal to its plain version's and to the index-set chain it replaced
+     (index sets in torch ops and paint_cell_sets), two launches
+     bit-identical, one launch a call; its time beside the bytes bound,
+     the plain version's, the chain's and the zero fill's; then map
+     tail — the map update's tail kernel pair
      (ops/map_tail.py) at fleet40's inputs (8 tutorial pyramids, one gate
      a robot) and live40's (one pyramid): each cell model bit-equal to
      its plain version and to the chain it replaced, with 1 and 8 of 8
@@ -189,7 +202,7 @@ the main path through the entry points a user calls:
      equal, finest maps agreeing on more than 99.9% of cells against the
      unsharded fleet_step run here), the 64-robot shared fleet (bit-equal
      to shared_fleet_step) and shard_hypotheses at B = 4096 (within 1e-6
-     of match_hypotheses), each rank's update one paint_cells launch a
+     of match_hypotheses), each rank's update one raster_paint launch a
      step and the same all-reduces on every step, gated or not (gloo
      runs the step body eagerly); then one NCCL rank running the
      compiled sharded steps (CUDA graphs with the all-reduces inside) of
@@ -197,7 +210,7 @@ the main path through the entry points a user calls:
      shard_hypotheses: bit-equal to the eager sharded run and to the
      unsharded run of fleet_step_jit,
      shared_fleet_step_jit and match_hypotheses_jit; one capture, then
-     none, 0 stream syncs in a replay, one paint_cells launch a rank and
+     none, 0 stream syncs in a replay, one raster_paint launch a rank and
      step, pool bytes, robot-scans/s in turns; launches are counted in
      the ranks, and steps 1-5, the timed ones, hold gated updates of
      both fleets;
@@ -686,8 +699,10 @@ def phase_sequential(kernels):
     ok = (gate_agree == len(gates) and count == int(ref["map_update_count"])
           and rmse < RMSE_BUDGET_M and trunc == 0
           and np.isfinite(poses).all() and poses.shape == ref["poses"].shape
-          and launches["paint_cells"] == paints
-          and xla_launches["paint_cells"] == paints and replays_equal
+          and launches["raster_paint"] == paints
+          and xla_launches["raster_paint"] == paints and replays_equal
+          # the index sets are no longer built or painted on the card
+          and launches["paint_cells"] == xla_launches["paint_cells"] == 0
           # the matcher: one robot kernel launch a level a scan
           and launches["robot_match_level"] == cfg.map.levels * paints
           and xla_launches["robot_match_level"] == cfg.map.levels * paints
@@ -1037,12 +1052,13 @@ def phase_session(kernels, run_log_poses):
         # capture, whose warm-up paints once
         "a_graph_replays": graph_delta(0, "replays") == len(ranges)
         and graph_delta(0, "captures") == 1,
-        "a_paint_per_scan": delta(0, "paint_cells") == len(ranges) + 1
+        "a_paint_per_scan": delta(0, "raster_paint") == len(ranges) + 1
+        and delta(0, "paint_cells") == 0
         and delta(0, "interp_moments") == 0,
         "b_graph_replays": graph_delta(1, "replays")
         == 2 * SESSION_PHASES_SCANS and graph_delta(1, "captures") == 2,
-        "b_paint_per_scan": delta(1, "paint_cells")
-        == SESSION_PHASES_SCANS + 1,
+        "b_paint_per_scan": delta(1, "raster_paint")
+        == SESSION_PHASES_SCANS + 1 and delta(1, "paint_cells") == 0,
         "b_bit_equal_a": bool(np.array_equal(
             poses_b, poses_a[:SESSION_PHASES_SCANS])),
         "recovered": all(v["accepted"] and v["err_m"] < RECOVERED_M
@@ -1540,7 +1556,8 @@ def phase_fleet(kernels):
     ok = (np.isfinite(poses).all() and poses.shape == (
         FLEET_STEPS, FLEET_ROBOTS, 3) and gates[0].all()
         and launches["interp_moments"] == 0
-        and launches["paint_cells"] == paints and launches["paint_cells"] > 0
+        and launches["raster_paint"] == paints and paints > 0
+        and launches["paint_cells"] == 0
         and float(np.percentile(err, 90)) < 0.05
         and all(v["gates_equal"] and v["max_pose_diff_m"] <= 1e-6
                 and v["maps_bit_equal"] for v in solo.values()))
@@ -1550,7 +1567,7 @@ def phase_fleet(kernels):
          robot_scans_per_s=timed * FLEET_ROBOTS / seconds,
          gates_per_step=gates.sum(1).tolist(), map_updates=updates,
          kernel_launches=launches, expected_paint_launches=paints,
-         paint_launches_per_step=launches["paint_cells"] / FLEET_STEPS,
+         paint_launches_per_step=launches["raster_paint"] / FLEET_STEPS,
          truncated_free_cells=int(sum(m.truncated_free_cells.sum()
                                       for m in metrics)),
          displacement_err_p90_m=float(np.percentile(err, 90)),
@@ -1598,7 +1615,8 @@ def phase_shared_fleet(kernels):
           and torch.stack(trunc).cpu().numpy().tolist()
           == ref["truncated_free_cells"].tolist()
           and np.isfinite(poses).all()
-          and launches["paint_cells"] == paints and paints > 0)
+          and launches["raster_paint"] == paints and paints > 0
+          and launches["paint_cells"] == 0)
     emit("shared_fleet", ok=ok, robots=r, steps=steps, warmup_steps=1,
          timed_steps=timed, window_s=seconds, steps_per_s=timed / seconds,
          robot_scans_per_s=timed * r / seconds,
@@ -1715,10 +1733,11 @@ def phase_graphs(dev, kernels, sequential, hyp_inputs, fleet, shared):
         seq_graph["per_replay"] == {"interp_moments": 0,
                                     "interp_moments_level": 0,
                                     "robot_match_level": cfg.map.levels,
-                                    "paint_cells": 1, "map_tail": 2}
+                                    "paint_cells": 0, "raster_paint": 1,
+                                    "map_tail": 2}
         and g1["replays"] - g0["replays"] == n
         and g1["captures"] - g0["captures"] == 1
-        and c1["paint_cells"] - c0["paint_cells"] == n + 1)
+        and c1["raster_paint"] - c0["raster_paint"] == n + 1)
     (_, syncs) = count_host_syncs(lambda: ht.run_log_jit(state0, scans, cfg))
     checks["run_log_no_stream_sync"] = syncs == []
     rates = {}
@@ -1757,7 +1776,7 @@ def phase_graphs(dev, kernels, sequential, hyp_inputs, fleet, shared):
         sync_sites=syncs[:8], rates_in_call_order=rates,
         traced_scans=GRAPH_PROFILE_SCANS, traced_per_scan=per_scan)
 
-    paints = {"sequential": read_counts(kernels)["paint_cells"]}
+    paints = {"sequential": read_counts(kernels)["raster_paint"]}
 
     # -- batched matching: the kernel route and the plain route -----------
     levels = tuple(torch.from_numpy(lo).to(dev)
@@ -1791,7 +1810,8 @@ def phase_graphs(dev, kernels, sequential, hyp_inputs, fleet, shared):
     [pgraph] = stats_of("match_hypotheses_jit")
     checks["kernel_route_launches"] = kgraph["per_replay"] == {
         "interp_moments": 0, "interp_moments_level": 3,
-        "robot_match_level": 0, "paint_cells": 0, "map_tail": 0}
+        "robot_match_level": 0, "paint_cells": 0, "raster_paint": 0,
+        "map_tail": 0}
     out["batched"] = dict(
         hypotheses=hyp.shape[0], kernel_graph=kgraph, plain_graph=pgraph,
         plain_hypotheses=256, ms_per_call_in_call_order=[
@@ -1830,13 +1850,13 @@ def phase_graphs(dev, kernels, sequential, hyp_inputs, fleet, shared):
                 ("graphed again", timed_steps * robots / secs2),
                 ("eager again", timed_steps * robots / secs3)])
 
-    marks = read_counts(kernels)["paint_cells"]
+    marks = read_counts(kernels)["raster_paint"]
     checks["fleet_bit_equal"], out["fleet"] = fleet_runs(
         "fleet_step_jit", lambda s, sc: ht.fleet_step_jit(s, sc, cfg),
         lambda s, sc: ht.fleet_step(s, sc, cfg),
         lambda: ht.init_fleet(cfg, fleet["poses"].shape[1], dev), fleet)
-    paints["fleet"] = read_counts(kernels)["paint_cells"] - marks
-    marks = read_counts(kernels)["paint_cells"]
+    paints["fleet"] = read_counts(kernels)["raster_paint"] - marks
+    marks = read_counts(kernels)["raster_paint"]
     checks["shared_fleet_bit_equal"], out["shared_fleet"] = fleet_runs(
         "shared_fleet_step_jit",
         lambda s, sc: ht.shared_fleet_step_jit(s, sc, cfg),
@@ -1844,12 +1864,12 @@ def phase_graphs(dev, kernels, sequential, hyp_inputs, fleet, shared):
         lambda: ht.init_shared_fleet(cfg, shared["poses"].shape[1],
                                      start_poses=shared["starts"],
                                      device=dev), shared)
-    paints["shared_fleet"] = read_counts(kernels)["paint_cells"] - marks
+    paints["shared_fleet"] = read_counts(kernels)["raster_paint"] - marks
     for name in ("fleet", "shared_fleet"):
         checks[f"{name}_launches"] = out[name]["graph"]["per_replay"] == {
             "interp_moments": 0, "interp_moments_level": 0,
-            "robot_match_level": cfg.map.levels, "paint_cells": 1,
-            "map_tail": 2}
+            "robot_match_level": cfg.map.levels, "paint_cells": 0,
+            "raster_paint": 1, "map_tail": 2}
     launches = read_counts(kernels)
     graphs.clear()
     checks = {k: bool(v) for k, v in checks.items()}
@@ -1988,6 +2008,145 @@ def phase_paint(dev, inputs):
     emit("paint_vs_plain", ok=ok, tolerance="exact", updates=rows)
     if not ok:
         raise SystemExit("paint_cells disagrees with its plain version")
+    return rows, mismatched
+
+
+def raster_levels(cfg):
+    """``paint_pyramid``'s raster geometry of ``cfg``'s pyramid."""
+    from hector_slam_tpu_torch.ops.raster_paint import RasterLevel
+    mcfg = cfg.map
+    return [RasterLevel(mcfg.level_size(lv)[::-1], 1.0 / (2.0 ** lv),
+                        mcfg.top_left_offset, mcfg.level_scale(lv),
+                        cfg.level_max_ray_cells(lv))
+            for lv in range(mcfg.levels)]
+
+
+def index_set_chain(levels, poses, scan, layout):
+    """The chain raster_paint replaced on the card: every level's index
+    sets in torch ops (one scan: the segment-compacted layout and its
+    dense fallback; R scans: the dense layout), painted by one
+    paint_cell_sets call, and the truncated counts summed over levels."""
+    from hector_slam_tpu_torch.core import mapping as tmap
+    from hector_slam_tpu_torch.ops.raster_paint import level_scaled
+    inputs = [(poses, level_scaled(scan.points, lv),
+               level_scaled(scan.origo, lv), scan.mask, lv.offset, lv.scale,
+               lv.max_ray_cells) for lv in levels]
+    if layout == "single":
+        shapes = [lv.shape for lv in levels]
+        pairs, counts = tmap._seg_pairs(shapes, inputs)
+    else:
+        pairs, shapes, counts = zip(*(
+            tmap._level_sets(lv.shape, layout == "per_robot", *args)
+            for lv, args in zip(levels, inputs)))
+    truncated = torch.zeros(poses.shape[:-1], dtype=torch.int32,
+                            device=poses.device)
+    for t in counts:
+        truncated = truncated + t
+    return tmap._paint_pairs(pairs, shapes), truncated
+
+
+def tutorial_paint_inputs(dev):
+    """raster_paint's inputs at TUTORIAL_CONFIG (the cells live40 and
+    fleet40 run): simulated UTM-30LX scans of the four-room loop at their
+    true poses, 8 robots 7 scans apart. {case: (layout, poses, scan)}:
+    live40's one scan, fleet40's 8 robots on 8 maps with 1 and with all 8
+    gated (an ungated robot's beams masked, as paint_pyramid masks them),
+    the 8 on one shared map, and a rank's quarter of fleet40's beams."""
+    import hector_slam_tpu_torch as ht
+    from hector_slam_tpu_torch.io.simulator import (World, loop_trajectory,
+                                                    simulate_trajectory)
+    cfg = ht.TUTORIAL_CONFIG
+    laser = ht.LaserModel()
+    truth = loop_trajectory(754)[10:66:7]
+    ranges = simulate_trajectory(World.multi_room(), truth, laser,
+                                 range_noise_std=0.01)
+    scan = ht.stack_scans([ht.scan_from_ranges(
+        r, cfg.map.level_scale(0), laser, cfg.max_beams, device=dev)
+        for r in ranges])
+    poses = torch.from_numpy(truth).to(dev)
+    one_gated = ht.Scan(scan.points, scan.origo, scan.mask & (
+        torch.arange(8, device=dev) == 3)[:, None])
+    n = scan.points.shape[1] // 4
+    return cfg, {
+        "live40": ("single", poses[0], ht.Scan(scan.points[0],
+                                               scan.origo[0], scan.mask[0])),
+        "fleet40_1_gated": ("per_robot", poses, one_gated),
+        "fleet40_8_gated": ("per_robot", poses, scan),
+        "shared_8": ("shared", poses, scan),
+        "fleet40_beam_shard": ("per_robot", poses, ht.Scan(
+            scan.points[:, n:2 * n], scan.origo, scan.mask[:, n:2 * n]))}
+
+
+def phase_raster_paint(dev, inputs):
+    """The map update's rasterization and paint in one launch
+    (ops/raster_paint.py) at live40's and fleet40's inputs
+    (``tutorial_paint_inputs``) and at one update of each SLAM path of
+    the phases above (``inputs``: {path: (layout, poses, scan)}, at
+    BENCH_CONFIG): grids and truncated counts exactly equal to the plain
+    version's and to the index-set chain it replaced, two launches
+    bit-identical; its time (one zero fill and one launch) beside the
+    bytes bound (every grid byte written once, each beam's point and mask
+    read once), the plain version's, the chain's and the fill's alone.
+    Returns (rows, mismatched cells and counts)."""
+    import hector_slam_tpu_torch as ht
+    from hector_slam_tpu_torch.ops.raster_paint import (raster_paint,
+                                                        raster_paint_plain)
+    tcfg, cases = tutorial_paint_inputs(dev)
+    runs = [(name, None, tcfg, *args) for name, args in cases.items()]
+    runs += [(f"{path} update", path, ht.BENCH_CONFIG, *args)
+             for path, args in inputs.items()]
+    rows, mismatched = [], 0
+    for name, path, cfg, layout, poses, scan in runs:
+        levels = raster_levels(cfg)
+        per_robot = layout == "per_robot"
+        args = (levels, poses, scan.points, scan.origo, scan.mask, per_robot)
+        before = raster_paint.launches
+        k1, k2 = raster_paint(*args), raster_paint(*args)
+        launches = raster_paint.launches - before
+        plain = raster_paint_plain(*args)
+        chain_sets, chain_trunc = index_set_chain(levels, poses, scan, layout)
+
+        def off(got, sets, trunc):
+            cells = sum(int((a != b).sum()) for pair, want in zip(
+                got.sets, sets) for a, b in zip(pair, want))
+            return cells + int((got.truncated - trunc).abs().sum())
+
+        bad = off(k1, plain.sets, plain.truncated) + int(
+            (k1.level_truncated - plain.level_truncated).abs().sum())
+        chain_bad = off(k1, chain_sets, chain_trunc)
+        mismatched += bad + chain_bad
+        grid_bytes = sum(g.numel() for pair in k1.sets for g in pair)
+        beams = scan.mask.numel()
+        bytes_ = grid_bytes + 9 * beams * len(levels)
+        times = device_times(
+            ms=(lambda: raster_paint(*args), 20),
+            plain_ms=(lambda: raster_paint_plain(*args), 5),
+            chain_ms=(lambda: index_set_chain(levels, poses, scan, layout),
+                      10),
+            zero_ms=(lambda: torch.zeros(grid_bytes, dtype=torch.uint8,
+                                         device=dev), 20))
+        bound = bytes_ / HBM_BYTES_PER_S * 1e3
+        rows.append(dict(
+            update=name, path=path, layout=layout,
+            scans=int(scan.mask.shape[0]) if scan.mask.dim() == 2 else 1,
+            beams=beams, levels=len(levels), launches_per_call=launches / 2,
+            free_cells=int(sum(int(f.sum()) for f, _ in k1.sets)),
+            occupied_cells=int(sum(int(o.sum()) for _, o in k1.sets)),
+            truncated=int(k1.truncated.sum()), mismatched=bad,
+            chain_mismatched=chain_bad,
+            repeat_bit_identical=all(
+                torch.equal(a, b) for pa, pb in zip(k1.sets, k2.sets)
+                for a, b in zip(pa, pb))
+            and torch.equal(k1.level_truncated, k2.level_truncated),
+            **times, bytes=bytes_, bound_ms=bound,
+            bound_share=bound / times["ms"]))
+    ok = mismatched == 0 and all(r["repeat_bit_identical"]
+                                 and r["launches_per_call"] == 1
+                                 for r in rows)
+    emit("raster_paint", ok=ok, tolerance="exact", updates=rows)
+    if not ok:
+        raise SystemExit("raster_paint disagrees with its plain version or "
+                         "with the index-set chain")
     return rows, mismatched
 
 
@@ -2602,7 +2761,7 @@ def phase_sharded(dev, kernels, fleet_scans, shared_scans, starts,
     maps agreeing on more than SHARDED_MAP_AGREE of cells), the shared
     fleet bit for bit (robots only), the hypotheses within
     SHARDED_HYP_M. A gloo group runs the step body eagerly: every rank's
-    map update is one paint_cells launch a step, and every rank issues
+    map update is one raster_paint launch a step, and every rank issues
     the same all-reduces on every step, gated or not. (b) One NCCL rank:
     the compiled sharded steps (CUDA graphs with the group's all-reduces
     inside) of both fleets, in turns with the body run eagerly
@@ -2610,7 +2769,7 @@ def phase_sharded(dev, kernels, fleet_scans, shared_scans, starts,
     (match_hypotheses_jit's graph) beside the eager matcher: each
     bit-equal to the eager sharded run and to the unsharded run of the
     ``*_jit`` entry points here; one capture in the first compiled turn
-    and none after, no stream sync in a replay, one paint_cells launch
+    and none after, no stream sync in a replay, one raster_paint launch
     a rank and step (and one in the capture's warm-up). Every run, gloo
     or NCCL, launches the map tail twice for each paint. The launches are
     counted in the ranks; the steps after the first (timed) hold gated
@@ -2706,7 +2865,7 @@ def phase_sharded(dev, kernels, fleet_scans, shared_scans, starts,
 
     launches = {name: sum(launches_of(g, name) for g in got.values())
                 for name in kernels}
-    paints = {k: launches_of(g, "paint_cells") for k, g in got.items()}
+    paints = {k: launches_of(g, "raster_paint") for k, g in got.items()}
     # every paint is applied by the map tail's two launches
     tails = {k: launches_of(g, "map_tail") for k, g in got.items()}
     # every rank paints once a step, gated or not, and once more in a
@@ -2747,10 +2906,10 @@ def phase_sharded(dev, kernels, fleet_scans, shared_scans, starts,
             captures=[int(turn(g, i)["captures"]) for i in turns],
             syncs_last_step=[int(turn(g, i)["syncs"]) for i in turns],
             pool_bytes=int(g["pool_bytes"]),
-            paint_launches=[int(turn(g, i)["launches_paint_cells"])
+            paint_launches=[int(turn(g, i)["launches_raster_paint"])
                             for i in turns],
             paint_launches_per_rank_step=int(turn(g, compiled[-1])[
-                "launches_paint_cells"]) / SHARDED_STEPS,
+                "launches_raster_paint"]) / SHARDED_STEPS,
             robot_scans_per_s=dict(zip(
                 [f"{i} {SHARDED_TURNS[i]}" for i in turns],
                 rates(g, fposes.shape[1] if name == "fleet"
@@ -2781,7 +2940,7 @@ def phase_sharded(dev, kernels, fleet_scans, shared_scans, starts,
             and np.array_equal(nh["poses"], hyp_jit)
             and np.array_equal(nh["poses"], hyp_poses)),
         "paint_launches": paints == expected
-        and launches["interp_moments"] == 0,
+        and launches["interp_moments"] == launches["paint_cells"] == 0,
         "map_tail_launches": tails == {k: 2 * v for k, v in paints.items()},
         # every rank issues the same all-reduces on every step, gated or
         # not
@@ -2879,13 +3038,14 @@ def run_paths(dev):
     from hector_slam_tpu_torch.ops.matmul_stationary import matmul_stationary
     from hector_slam_tpu_torch.ops.paint_cells import paint_cells
     from hector_slam_tpu_torch.ops.paint_runs import paint_runs
+    from hector_slam_tpu_torch.ops.raster_paint import raster_paint
     from hector_slam_tpu_torch.ops.robot_match import robot_match_level
     from hector_slam_tpu_torch.ops.take_along import take_along
     kernels = {"interp_moments": interp_moments,
                "interp_moments_level": interp_moments_level,
                "robot_match_level": robot_match_level,
-               "paint_cells": paint_cells, "map_tail": map_tail,
-               "take_along": take_along,
+               "paint_cells": paint_cells, "raster_paint": raster_paint,
+               "map_tail": map_tail, "take_along": take_along,
                "matmul_stationary": matmul_stationary,
                "dyn_slice": dyn_slice, "paint_runs": paint_runs}
     abs_kvp = phase_kernel_vs_plain(dev)
@@ -2909,6 +3069,8 @@ def run_paths(dev):
     del sequential, fleet, shared
     paint_inputs.update(sharded_paint_inputs(fleet_first, shared_first))
     paint_rows, paint_bad = phase_paint(dev, paint_inputs)
+    raster_rows, raster_bad = phase_raster_paint(
+        dev, {k: v for k, v in paint_inputs.items() if k != "sequential_seg"})
     tail_rows, tail_err = phase_map_tail(dev)
     robot_rows = phase_robot_match(dev)
     paths["probes"], probe_rows, long_lines = phase_probes(dev, kernels)
@@ -2926,23 +3088,24 @@ def run_paths(dev):
     def mean(key):
         return sum(lv[key] * lv["gn_steps"] for lv in levels) / total
 
-    # paint: each update shape weighted by the launches painting it (one
-    # a scan or step); run_log, the session and the compiled sequential
-    # steps paint both free sets (one of them all sentinels), the "xla"
-    # replay the dense ones; the NCCL rank paints the whole fleet, the
-    # gloo ranks their blocks
-    weights = {p: paths[p]["paint_cells"] + graph_paints[p]
+    # raster_paint: each update shape weighted by the launches painting it
+    # (one a scan or step; every layout of the sequential updates paints
+    # the same cells); the NCCL rank paints the whole fleet, the gloo
+    # ranks their blocks
+    weights = {p: paths[p]["raster_paint"] + graph_paints[p]
                for p in ("fleet", "shared_fleet")}
-    weights["sequential_seg"] = (paths["sequential"]["paint_cells"]
-                                 + paths["session"]["paint_cells"]
-                                 + graph_paints["sequential"])
-    weights["sequential"] = paths["sequential_xla"]["paint_cells"]
+    weights["sequential"] = (paths["sequential"]["raster_paint"]
+                             + paths["sequential_xla"]["raster_paint"]
+                             + paths["session"]["raster_paint"]
+                             + graph_paints["sequential"])
     weights["fleet"] += sharded_paints["nccl_fleet"]
     weights["shared_fleet"] += sharded_paints["nccl_shared"]
     weights["sharded"] = sharded_paints["fleet"]
     weights["sharded_shared"] = sharded_paints["shared_fleet"]
-    slam_rows = [r for r in paint_rows if r["path"]]
+    slam_rows = [r for r in raster_rows if r["path"]]
     wsum = sum(weights[r["path"]] for r in slam_rows)
+    [probe_paint] = [r for r in paint_rows if not r["path"]]
+    tutorial = {r["update"]: r for r in raster_rows if not r["path"]}
 
     def pmean(key):
         return sum(r[key] * weights[r["path"]] for r in slam_rows) / wsum
@@ -2985,15 +3148,41 @@ def run_paths(dev):
         "launches": sum(by_path("paint_cells").values()),
         "launches_by_path": by_path("paint_cells"),
         "max_abs_err": paint_bad,
+        "ms": probe_paint["ms"],
+        "plain_ms": probe_paint["plain_ms"],
+        "bound_ms": probe_paint["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": probe_paint["library_ms"],
+        "per_call": "the probe's 65,536 cells on 1024^2, zero fill "
+                    "included; timed: also the map updates' index sets, "
+                    "which the SLAM paths paint with raster_paint",
+        "timed": paint_rows,
+    }, {
+        "name": "raster_paint",
+        "route": "cuda",
+        "source": "hector_slam_tpu_torch/csrc/raster_paint.cu",
+        "replaces": "tools/probe_mosaic_store.py:55",
+        "replaces_note": "the same TPU kernel as paint_cells, with the index "
+                         "sets XLA builds for it: one launch an update",
+        "launches": sum(by_path("raster_paint").values()),
+        "launches_by_path": by_path("raster_paint"),
+        "max_abs_err": raster_bad,
         "ms": pmean("ms"),
         "plain_ms": pmean("plain_ms"),
+        "chain_ms": pmean("chain_ms"),
         "bound_ms": pmean("bound_ms"),
         "bound_by": "bytes",
-        "library_ms": pmean("library_ms"),
-        "per_set_ms": pmean("per_set_ms"),
+        "library_ms": None,
         "host_in": sorted({k for r in slam_rows for k in r["host_in"]}),
-        "per_call": "one map update's six cell sets, zero fill included; "
-                    "per_set_ms: the same sets as six one-set calls",
+        "live40": {k: tutorial["live40"][k] for k in (
+            "ms", "plain_ms", "chain_ms", "zero_ms", "bound_ms")},
+        "fleet40": {k: tutorial["fleet40_1_gated"][k] for k in (
+            "ms", "plain_ms", "chain_ms", "zero_ms", "bound_ms")},
+        "per_call": "one map update, zero fill included, launch-weighted "
+                    "over the SLAM paths; chain_ms: the index sets and "
+                    "paint_cell_sets it replaced; live40, fleet40: at "
+                    "TUTORIAL_CONFIG's inputs",
+        "timed": raster_rows,
     }, dict(probe_entry("take_along", pdir + "take_along.cu",
                         "tools/probe_pallas.py:86", paths, probe_rows),
             also_replaces="tools/probe_pallas.py:116",

@@ -66,13 +66,15 @@ from .. import tracing
 from ..ops.interp_moments import interp_moments, interp_moments_level
 from ..ops.map_tail import map_tail
 from ..ops.paint_cells import paint_cells
+from ..ops.raster_paint import raster_paint
 from ..ops.robot_match import robot_match_level
 
 MAX_GRAPHS = 8
 COUNTED = {"interp_moments": interp_moments,
            "interp_moments_level": interp_moments_level,
            "robot_match_level": robot_match_level,
-           "paint_cells": paint_cells, "map_tail": map_tail}
+           "paint_cells": paint_cells, "raster_paint": raster_paint,
+           "map_tail": map_tail}
 
 
 class GraphStats(NamedTuple):

@@ -8,17 +8,19 @@ per-scan update is two boolean masks:
             + logOddsOcc  * [cell in occ-set and old < 50]
 The free cell j of a beam sits at the closed-form Bresenham offset
 ``start + j*offset_a + ((abs_da//2 + j*abs_db)//abs_da)*offset_b``, so
-every free cell is a dense [N, K] integer computation. A map update
-paints every level's free and occupied sets with one ``paint_cell_sets``
-call (one zero fill and one launch of the CUDA kernel
-``csrc/paint_cells.cu`` on the card). The steps apply the painted sets
-with ``integrate_sets``: the map tail kernel pair (ops/map_tail.py)
-writes the levels and packs the matcher's quads anew, only for the maps
-whose gate fired; ``update_pyramid`` applies them with ``apply_update``
-into new tensors, as the JAX package's does.
+every free cell is a dense [N, K] integer computation. On the card a
+map update rasterizes and paints every level's free and occupied sets
+in one launch of the CUDA kernel ``csrc/raster_paint.cu``
+(``ops/raster_paint.py``, after one zero fill), which stores each cell
+straight into the grids; on the CPU the index sets are built in torch
+ops and painted with one ``paint_cell_sets`` call. The steps apply the
+painted sets with ``integrate_sets``: the map tail kernel pair
+(ops/map_tail.py) writes the levels and packs the matcher's quads anew,
+only for the maps whose gate fired; ``update_pyramid`` applies them
+with ``apply_update`` into new tensors, as the JAX package's does.
 
 The rasterizer broadcasts over leading axes, so a fleet's R scans cost
-one paint call per update, like one scan: each set goes into one [H*W]
+one paint per update, like one scan: each set goes into one [H*W]
 grid (a shared map: painting every gated robot's cells into one grid IS
 the OR over robots), or, for per-robot maps, into one [R*H*W] grid with
 robot r's cells offset by r*H*W.
@@ -29,7 +31,8 @@ the valid 64-cell beam segments are compacted first, so the set holds
 about as many slots as the scan has free cells instead of one slot per
 possible cell of every beam. A level whose segments overflow the budget
 paints its dense set instead, chosen on the device. Both layouts give
-the same cells.
+the same cells, so on the card, where no index set is built, the kernel
+paints them whichever layout ``pick_raster_backend`` names.
 """
 
 from __future__ import annotations
@@ -42,12 +45,12 @@ import torch
 from ..config import SlamConfig
 from ..ops.map_tail import map_tail
 from ..ops.paint_cells import paint_cell_sets
+from ..ops.raster_paint import RasterLevel, level_scaled, raster_paint
 from ..types import Scan
 from .cell_models import apply_update, storage_channels
 from .collectives import por
 from .grid import world_to_map_pose
 from .interp import quad_pack_storage
-from .matcher import level_points
 
 
 def _sign_ref(x: torch.Tensor) -> torch.Tensor:
@@ -339,26 +342,43 @@ def _level_sets(grid_shape, per_robot, pose_world, scan_points, scan_origo,
     return (free, occ), shape, truncated
 
 
-def _paint_levels(storages, level_inputs, cell_model: str, beam_axis=None,
-                  raster_backend=None):
-    """Each storage's cell sets from its level's scan inputs (pose,
-    points, origo, mask, offset, scale, max_ray_cells): every level's
-    index sets first (their layout by ``pick_raster_backend``), then all
-    of them painted in one call (and OR-combined over ``beam_axis``). A
-    storage with a leading robot axis beyond the cell model's own is R
-    maps. Returns (each level's painted (free, occupied) bool grids, this
-    rank's truncated cells per level)."""
+def _paint_levels(storages, pose_world, points, origo, mask,
+                  levels: Sequence[RasterLevel], cell_model: str,
+                  beam_axis=None, raster_backend=None):
+    """Each storage's cell sets from the scans (pose, points and origo in
+    the world frame, mask) and its level's geometry (``levels``, the
+    storages' grid shapes among it), painted in one go and OR-combined
+    over ``beam_axis``. A storage with a leading robot axis beyond the
+    cell model's own is R maps. On the card one
+    ``raster_paint`` launch paints every level; on the CPU every level's
+    index sets are built first (their layout by ``pick_raster_backend``),
+    then all of them painted in one call. Returns (each level's painted
+    (free, occupied) bool grids, this rank's truncated cells summed over
+    levels, i32[(R,)])."""
+    dev = storages[0].device
     per_robot = storages[0].dim() > 1 + storage_channels(cell_model)
-    one_scan = level_inputs[0][0].dim() == 1 and not per_robot
-    if pick_raster_backend(raster_backend, storages[0].device, beam_axis,
-                           one_scan) == "seg":
-        shapes = [tuple(lo.shape[-2:]) for lo in storages]
-        pairs, truncated = _seg_pairs(shapes, level_inputs)
+    one_scan = pose_world.dim() == 1 and not per_robot
+    backend = pick_raster_backend(raster_backend, dev, beam_axis, one_scan)
+    if dev.type == "cuda":
+        sets, _, truncated = raster_paint(levels, pose_world, points, origo,
+                                          mask, per_robot)
+        grids = por([g for pair in sets for g in pair], beam_axis)
+        return list(zip(grids[0::2], grids[1::2])), truncated
+    level_inputs = [
+        (pose_world, level_scaled(points, lv), level_scaled(origo, lv),
+         mask, lv.offset, lv.scale, lv.max_ray_cells) for lv in levels]
+    if backend == "seg":
+        shapes = [lv.shape for lv in levels]
+        pairs, counts = _seg_pairs(shapes, level_inputs)
     else:
-        pairs, shapes, truncated = zip(*(
-            _level_sets(tuple(lo.shape[-2:]), per_robot, *inputs)
-            for lo, inputs in zip(storages, level_inputs)))
-    return _paint_pairs(pairs, shapes, beam_axis), list(truncated)
+        pairs, shapes, counts = zip(*(
+            _level_sets(lv.shape, per_robot, *inputs)
+            for lv, inputs in zip(levels, level_inputs)))
+    truncated = torch.zeros(pose_world.shape[:-1], dtype=torch.int32,
+                            device=dev)
+    for t in counts:
+        truncated = truncated + t
+    return _paint_pairs(pairs, shapes, beam_axis), truncated
 
 
 def rasterize_scan(
@@ -432,15 +452,15 @@ def update_level(
     leading robot axis beyond the cell model's own ([R, H, W], or
     [R, 2, H, W] for reflectance) is R maps, scan r updating map r; else
     the R scans update the one map together. A robot whose mask is all
-    False leaves its cells as they were. Its two sets are one paint
-    call.
+    False leaves its cells as they were. Its two sets are one paint.
 
     ``beam_axis`` and the truncated count as in ``update_pyramid``;
     ``raster_backend`` as in ``pick_raster_backend`` (the JAX package's
     ``update_level`` parameters, in its order)."""
-    [(free_set, occ_set)], [truncated] = _paint_levels(
-        [log_odds], [(pose_world, scan_points, scan_origo, scan_mask, offset,
-                      scale, max_ray_cells)],
+    [(free_set, occ_set)], truncated = _paint_levels(
+        [log_odds], pose_world, scan_points, scan_origo, scan_mask,
+        [RasterLevel(tuple(log_odds.shape[-2:]), 1.0, offset, scale,
+                     max_ray_cells)],
         cell_model, beam_axis, raster_backend)
     return apply_update(log_odds, free_set & ~occ_set, occ_set, cell_model,
                         log_odds_free, log_odds_occupied), truncated
@@ -468,11 +488,11 @@ def update_pyramid(
     update (occupied wins across robots as across beams,
     hector_slam_tpu/parallel/shared_map.py:6-15).
 
-    Either way the update is one paint call: every level's indices are
-    computed first, then all 2 x levels sets are painted together, then
-    each level is updated. So every level's index tensors are alive at
-    once: for 64 per-robot ``BENCH_CONFIG`` pyramids about 340 MB (191 MB
-    of them the level-0 free set), plus 176 MB of bool grids.
+    Either way the update is one paint: on the card one ``raster_paint``
+    launch stores every level's cells into the bool grids (for 64
+    per-robot ``BENCH_CONFIG`` pyramids 176 MB), with no index tensor; on
+    the CPU every level's indices are computed first, then all 2 x levels
+    sets are painted in one call, then each level is updated.
 
     ``beam_axis``: the process group whose ranks' cell sets are
     OR-combined before the update (hector_slam_tpu/core/mapping.py:
@@ -487,7 +507,8 @@ def update_pyramid(
     (``pick_raster_backend``). Both paint the same cells: "seg" paints a
     level's compacted set and its dense set, and the device masks the
     dense one, or past the budget the compacted one, so the update reads
-    nothing on the host."""
+    nothing on the host. On the card the kernel builds no set of either
+    layout and paints those same cells."""
     sets, truncated = paint_pyramid(log_odds_pyramid, pose_world, scan, cfg,
                                     beam_axis, raster_backend, gates=gates)
     upd = cfg.update
@@ -514,18 +535,13 @@ def paint_pyramid(
     Arguments as in ``update_pyramid``; ``integrate_sets`` applies them."""
     mcfg = cfg.map
     mask = scan.mask if gates is None else scan.mask & gates[:, None]
-    sets, truncated = _paint_levels(
-        log_odds_pyramid,
-        [(pose_world, level_points(scan.points, level),
-          level_points(scan.origo, level), mask, mcfg.top_left_offset,
-          mcfg.level_scale(level), cfg.level_max_ray_cells(level))
-         for level in range(len(log_odds_pyramid))],
+    return _paint_levels(
+        log_odds_pyramid, pose_world, scan.points, scan.origo, mask,
+        [RasterLevel(tuple(lo.shape[-2:]), 1.0 / (2.0 ** level),
+                     mcfg.top_left_offset, mcfg.level_scale(level),
+                     cfg.level_max_ray_cells(level))
+         for level, lo in enumerate(log_odds_pyramid)],
         cfg.update.cell_model, beam_axis, raster_backend)
-    truncated_total = torch.zeros(pose_world.shape[:-1], dtype=torch.int32,
-                                  device=scan.points.device)
-    for t in truncated:
-        truncated_total = truncated_total + t
-    return sets, truncated_total
 
 
 def integrate_sets(

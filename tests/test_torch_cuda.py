@@ -38,6 +38,7 @@ from hector_slam_tpu_torch.ops import dyn_slice as dsl
 from hector_slam_tpu_torch.ops import matmul_stationary as mms
 from hector_slam_tpu_torch.ops import paint_cells as pc
 from hector_slam_tpu_torch.ops import paint_runs as pr
+from hector_slam_tpu_torch.ops.raster_paint import raster_paint
 from hector_slam_tpu_torch.ops import take_along as ta
 
 TOL = 1e-5
@@ -258,7 +259,8 @@ def test_kernel_route_replay_launches_once_a_level_on_card(tutorial_map):
     assert entry.per_replay == {"interp_moments": 0,
                                 "interp_moments_level": cfg.map.levels,
                                 "robot_match_level": 0,
-                                "paint_cells": 0, "map_tail": 0}
+                                "paint_cells": 0, "raster_paint": 0,
+                                "map_tail": 0}
     mom0, lvl0 = im.interp_moments.launches, im.interp_moments_level.launches
     got, _ = ht.match_hypotheses_kernel_jit(state.log_odds, hyp, scan, cfg,
                                             quads=state.quads)
@@ -418,8 +420,8 @@ def test_paint_drops_out_of_range_on_card(cuda_device):
 @pytest.mark.cuda
 def test_fleet_equals_single_robot_steps_on_card(cuda_device):
     """Four robots on their own corridor trajectories through fleet_step
-    (one batched step, one paint per set and level) and each alone
-    through slam_step: poses, gates and maps bit-equal."""
+    (one batched step, one raster_paint launch for every set and level)
+    and each alone through slam_step: poses, gates and maps bit-equal."""
     cfg = ht.SlamConfig(map=ht.MapConfig(resolution=0.05, size_x=256,
                                          size_y=256, levels=2),
                         max_ray_cells=256)
@@ -440,14 +442,14 @@ def test_fleet_equals_single_robot_steps_on_card(cuda_device):
 
     fleet = ht.init_fleet(cfg, r, device=cuda_device)
     solo = [ht.init_state(cfg, device=cuda_device) for _ in range(r)]
-    before = pc.paint_cells.launches
+    before = raster_paint.launches
     for t in range(steps):
         fleet, m = ht.fleet_step(fleet, ht.stack_scans(
             [scan(rg) for rg in ranges[t]]), cfg)
         for i in range(r):
             solo[i], sm = ht.slam_step(solo[i], scan(ranges[t, i]), cfg)
             assert bool(sm.map_updated) == bool(m.map_updated[i])
-    assert pc.paint_cells.launches > before
+    assert raster_paint.launches == before + steps * (1 + r)
     for i in range(r):
         assert torch.equal(fleet.pose[i], solo[i].pose)
         for a, b in zip(fleet.log_odds, solo[i].log_odds):
@@ -538,11 +540,13 @@ def test_seg_sets_equal_dense_sets_on_card(cuda_device, k_cap, budget):
 
 @pytest.mark.cuda
 def test_slam_step_paints_seg_sets_on_card(cuda_device, monkeypatch):
-    """On the card slam_step with no raster_backend paints the compacted
-    free sets ([budget, 64] slots followed by the dense [N, K] ones, the
-    fallback chosen on the card; one paint launch a scan), and its maps
-    equal a "xla" replay's and the CPU's."""
+    """On the card slam_step paints whichever free-set layout it is given
+    (None: "seg", "seg", "xla") with one raster_paint launch a scan and
+    builds no index set (paint_cell_sets is never called), and its maps
+    equal the CPU's compacted ("seg") and dense routes, which paint the
+    index sets."""
     from hector_slam_tpu_torch.core import mapping as tmap
+    from hector_slam_tpu_torch.ops.raster_paint import raster_paint
     cfg = ht.SlamConfig(map=ht.MapConfig(resolution=0.05, size_x=256,
                                          size_y=256, levels=2),
                         max_ray_cells=256)
@@ -556,26 +560,30 @@ def test_slam_step_paints_seg_sets_on_card(cuda_device, monkeypatch):
 
     monkeypatch.setattr(tmap, "paint_cell_sets", spy)
     states = {}
-    for backend, dev in ((None, cuda_device), ("xla", cuda_device),
-                         (None, torch.device("cpu"))):
+    for backend, dev in ((None, cuda_device), ("seg", cuda_device),
+                         ("xla", cuda_device), (None, torch.device("cpu")),
+                         ("seg", torch.device("cpu"))):
         state = ht.init_state(cfg, device=dev)
-        before = pc.paint_cells.launches
+        before = (pc.paint_cells.launches, raster_paint.launches)
         for pose, sc in zip(poses, scans):
             state, _ = ht.slam_step(
                 state, ht.Scan(*(f.to(dev) for f in sc)), cfg,
                 pose_hint=torch.from_numpy(pose).to(dev),
                 map_without_matching=True, raster_backend=backend)
         if dev.type == "cuda":
-            assert pc.paint_cells.launches == before + len(poses)
+            assert (pc.paint_cells.launches, raster_paint.launches) == (
+                before[0], before[1] + len(poses))
+            assert not shapes
         states[(backend, dev.type)] = state
-    seg_shapes = shapes[:len(poses)]
+    dense_shapes, seg_shapes = shapes[:len(poses)], shapes[len(poses):]
     slots = [tmap.seg_budget(cfg.max_beams, k)[1] * 64 + cfg.max_beams * k
              for k in map(cfg.level_max_ray_cells, range(cfg.map.levels))]
     assert all(sets[0::2] == [(n,) for n in slots] for sets in seg_shapes)
     assert all(sets[0][1] == cfg.level_max_ray_cells(0)
-               for sets in shapes[len(poses):])
+               for sets in dense_shapes)
     seg = states[(None, "cuda")]
-    for other in (states[("xla", "cuda")], states[(None, "cpu")]):
+    for other in (states[("seg", "cuda")], states[("xla", "cuda")],
+                  states[(None, "cpu")], states[("seg", "cpu")]):
         for a, b in zip(seg.log_odds, other.log_odds):
             assert torch.equal(a.cpu(), b.cpu())
 
@@ -1066,7 +1074,7 @@ def test_graph_launch_counts_add_up_per_replay_on_card(cuda_device):
     cfg = ht.BENCH_CONFIG
     _, scans = _fixture_scans(cuda_device, 10)
     graphs.clear()
-    paint0, mom0 = pc.paint_cells.launches, im.interp_moments.launches
+    paint0, mom0 = raster_paint.launches, im.interp_moments.launches
     level0, tail0 = im.interp_moments_level.launches, map_tail.launches
     state = ht.init_state(cfg, device=cuda_device)
     for sc in scans:
@@ -1075,12 +1083,14 @@ def test_graph_launch_counts_add_up_per_replay_on_card(cuda_device):
     assert step.per_replay == {"interp_moments": 0,
                                "interp_moments_level": 0,
                                "robot_match_level": cfg.map.levels,
-                               "paint_cells": 1, "map_tail": 2}
+                               "paint_cells": 0, "raster_paint": 1,
+                               "map_tail": 2}
     assert step.warmup == {"interp_moments": 0, "interp_moments_level": 0,
                            "robot_match_level": cfg.map.levels,
-                           "paint_cells": 1, "map_tail": 2}
+                           "paint_cells": 0, "raster_paint": 1,
+                           "map_tail": 2}
     assert step.replays == 10 and step.pool_bytes > 0
-    assert pc.paint_cells.launches - paint0 == 1 + 10
+    assert raster_paint.launches - paint0 == 1 + 10
     assert map_tail.launches - tail0 == 2 * (1 + 10)
     hyp = state.pose + torch.zeros((256, 3), device=cuda_device)
     for _ in range(3):
@@ -1090,7 +1100,7 @@ def test_graph_launch_counts_add_up_per_replay_on_card(cuda_device):
     assert graphs.stats()[-1].per_replay["interp_moments"] == 0
     assert im.interp_moments_level.launches - level0 == 3 + 3 * 3
     assert im.interp_moments.launches == mom0
-    assert pc.paint_cells.launches - paint0 == 11
+    assert raster_paint.launches - paint0 == 11
 
 
 # ---- the session's recoveries through compiled routes, reset, CLI --------
@@ -1330,8 +1340,8 @@ def test_sharded_steps_compiled_on_one_nccl_rank_on_card(cuda_device,
                                       want.pose.cpu().numpy())
         for k, lo in enumerate(want.log_odds):
             np.testing.assert_array_equal(got[f"lo_{k}"], lo.cpu().numpy())
-        assert int(got["launches_paint_cells"]) == steps + 1
-        assert int(got["t2_launches_paint_cells"]) == steps
+        assert int(got["launches_raster_paint"]) == steps + 1
+        assert int(got["t2_launches_raster_paint"]) == steps
         assert int(got["pool_bytes"]) > 0
     assert int(hyp["captures"]) == 1 and int(hyp["later_captures"]) == 0
     assert int(hyp["syncs"]) == 0

@@ -282,20 +282,22 @@ def test_cache_keeps_the_newest_graphs(as_on_card, log, monkeypatch):
 
 def test_launch_counts_add_up_per_replay(as_on_card, log, monkeypatch):
     """With the paint, the map tail and the matcher's robot kernel counted
-    as the card counts them (one paint launch a call, two tail launches,
-    one matcher launch a level), a step graph counts its warm-up once and
-    one paint, two tail and one matcher launch a level a replay: the cell
-    sets are painted on every scan, and the tail's launches run on every
-    scan too (its blocks return where the gate did not fire)."""
+    as the card counts them (one raster_paint launch a call where the CPU
+    paints its index sets with one call, two tail launches, one matcher
+    launch a level), a step graph counts its warm-up once and one paint,
+    two tail and one matcher launch a level a replay, and no paint_cells
+    launch: the cell sets are painted on every scan, and the tail's
+    launches run on every scan too (its blocks return where the gate did
+    not fire)."""
     from hector_slam_tpu_torch.core import mapping, matcher
     from hector_slam_tpu_torch.ops.map_tail import map_tail
-    from hector_slam_tpu_torch.ops.paint_cells import paint_cells
+    from hector_slam_tpu_torch.ops.raster_paint import raster_paint
     from hector_slam_tpu_torch.ops.robot_match import robot_match_level
     paint, tail = mapping.paint_cell_sets, mapping.map_tail
     match = matcher.robot_match_level
 
     def counted(flats, sizes):
-        paint_cells.launches += 1
+        raster_paint.launches += 1
         return paint(flats, sizes)
 
     def counted_tail(*args):
@@ -310,24 +312,27 @@ def test_launch_counts_add_up_per_replay(as_on_card, log, monkeypatch):
     monkeypatch.setattr(mapping, "map_tail", counted_tail)
     monkeypatch.setattr(matcher, "robot_match_level", counted_match)
     _, scans = log
-    before, totals = paint_cells.launches, graphs.totals()
+    before, totals = raster_paint.launches, graphs.totals()
     tails, matches = map_tail.launches, robot_match_level.launches
     state = ht.init_state(CFG, device="cpu")
     for sc in scans[:5]:
         state, _ = ht.slam_step_jit(state, sc, CFG)
     [stats] = graphs.stats()
     levels = CFG.map.levels
-    assert stats.per_replay["paint_cells"] == stats.warmup["paint_cells"] == 1
+    assert stats.per_replay["raster_paint"] == stats.warmup["raster_paint"] \
+        == 1
+    assert stats.per_replay["paint_cells"] == stats.warmup["paint_cells"] \
+        == 0
     assert stats.per_replay["map_tail"] == stats.warmup["map_tail"] == 2
     assert stats.per_replay["robot_match_level"] == levels
     assert stats.warmup["robot_match_level"] == levels
     assert stats.per_replay["interp_moments_level"] == 0
-    assert paint_cells.launches - before == 1 + 5
+    assert raster_paint.launches - before == 1 + 5
     assert map_tail.launches - tails == 2 * (1 + 5)
     assert robot_match_level.launches - matches == levels * (1 + 5)
     after = graphs.totals()
-    for name, per_call in (("paint_cells", 1), ("map_tail", 2),
-                           ("robot_match_level", levels)):
+    for name, per_call in (("raster_paint", 1), ("paint_cells", 0),
+                           ("map_tail", 2), ("robot_match_level", levels)):
         assert after["launches"][name] - totals["launches"][name] \
             == 6 * per_call
     assert after["replays"] - totals["replays"] == 5

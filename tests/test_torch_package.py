@@ -109,7 +109,7 @@ def test_every_kernel_source_has_a_counted_wrapper():
     names = cuda_build.sources()
     assert set(names) == {"interp_moments", "paint_cells", "take_along",
                           "matmul_stationary", "dyn_slice", "paint_runs",
-                          "map_tail", "robot_match"}
+                          "map_tail", "robot_match", "raster_paint"}
     wrappers = {"robot_match": "robot_match_level"}
     for name in names:
         mod = importlib.import_module(f"hector_slam_tpu_torch.ops.{name}")

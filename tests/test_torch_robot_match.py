@@ -384,7 +384,8 @@ def test_match_pyramid_kernel_route_near_torch_route_on_card(tutorial):
 def test_step_graphs_launch_the_kernel_once_a_level_on_card(tutorial):
     """One replay of slam_step_jit and of fleet_step_jit at
     TUTORIAL_CONFIG: the robot kernel twice (once a level), the
-    hypothesis kernel's forms never, one paint and the map tail's two."""
+    hypothesis kernel's forms never, one raster_paint launch (paint_cells
+    none) and the map tail's two."""
     from hector_slam_tpu_torch.core import graphs
     cfg, _, scans, poses = tutorial
     dev = poses.device
@@ -397,8 +398,8 @@ def test_step_graphs_launch_the_kernel_once_a_level_on_card(tutorial):
     for _ in range(3):
         fleet, _ = ht.fleet_step_jit(fleet, stacked, cfg)
     want = {"interp_moments": 0, "interp_moments_level": 0,
-            "robot_match_level": cfg.map.levels, "paint_cells": 1,
-            "map_tail": 2}
+            "robot_match_level": cfg.map.levels, "paint_cells": 0,
+            "raster_paint": 1, "map_tail": 2}
     stats = {s.name: s for s in graphs.stats()}
     for name in ("slam_step_jit", "fleet_step_jit"):
         assert stats[name].per_replay == want

@@ -57,9 +57,9 @@ compiled, and holds them to the same runs unsharded through the
 ``*_jit`` entry points in one process (robots-only meshes bit-equal; the
 beam axis: poses within 2e-4, gates equal, finest maps > 99.9% equal;
 hypotheses within 1e-6), one capture a rank, then none, no stream sync
-in a replay, one paint launch a rank and step. Each prints one JSON line
-and the card's name and power limit, and exits non-zero when a check
-fails.
+in a replay, one raster_paint launch a rank and step. Each prints one
+JSON line and the card's name and power limit, and exits non-zero when a
+check fails.
 """
 
 from __future__ import annotations
@@ -87,6 +87,7 @@ from hector_slam_tpu_torch.core import graphs  # noqa: E402
 from hector_slam_tpu_torch.core.collectives import psum  # noqa: E402
 from hector_slam_tpu_torch.ops import interp_moments, paint_cells  # noqa
 from hector_slam_tpu_torch.ops.map_tail import map_tail  # noqa: E402
+from hector_slam_tpu_torch.ops.raster_paint import raster_paint  # noqa
 from hector_slam_tpu_torch.ops.robot_match import robot_match_level  # noqa
 from hector_slam_tpu_torch.parallel.batch import (  # noqa: E402
     fleet_step, init_fleet, match_hypotheses)
@@ -101,7 +102,8 @@ from hector_slam_tpu_torch.types import Scan, SlamState  # noqa: E402
 
 KERNELS = {"interp_moments": interp_moments.interp_moments,
            "robot_match_level": robot_match_level,
-           "paint_cells": paint_cells.paint_cells, "map_tail": map_tail}
+           "paint_cells": paint_cells.paint_cells,
+           "raster_paint": raster_paint, "map_tail": map_tail}
 SHARED_REFERENCE = ROOT / "tests" / "fixtures" / "shared_fleet_jax_reference.npz"
 ROBOTS = 64              # BASELINE config 5
 ROBOTS_PER_RANK = 16     # the scaling mode's weak-scaling unit
@@ -567,7 +569,7 @@ def scaling(device: str = "cuda") -> dict:
                     / (base[name, "eager"] * n),
                     captures=[int(t["captures"]) for t in turns],
                     syncs_last_step=[int(t["syncs"]) for t in turns],
-                    paint_launches=[int(t["launches_paint_cells"])
+                    paint_launches=[int(t["launches_raster_paint"])
                                     for t in turns],
                     pool_bytes=int(g["pool_bytes"]))
             rows.append(row)
@@ -685,7 +687,7 @@ def four_cards(device: str = "cuda") -> dict:
         and int(f22["syncs"]) == 0 and int(hy["syncs"]) == 0,
         # one paint a rank and step, and one in each capture's warm-up
         "paint_launches": all(
-            int(turn(g, i)["launches_paint_cells"])
+            int(turn(g, i)["launches_raster_paint"])
             == 4 * steps + int(turn(g, i)["captures"])
             for g in (f41, f22, sh) for i in (compiled if g is not f22
                                               else [0])),
