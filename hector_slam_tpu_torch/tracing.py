@@ -17,7 +17,7 @@ same host thread:
     hs.read                the pose, covariance and gate to the host
   hs.fleet                 one tick of a fleet through ``FleetSession``
     hs.fleet.convert       the R robots' ranges to one ``Scan``
-    hs.graph:fleet_step_jit
+    hs.graph:fleet_step_jit (hs.graph:shared_fleet_step_jit, one map)
     hs.fleet.read          the R poses and gates to the host
 
 Counters: plain ints since import, read with ``counters()``. An event
@@ -37,6 +37,7 @@ capture (``captured``), which is timed under ``graph.capture`` alone.
   fleet.step, fleet.convert, fleet.read         timed, per fleet tick
   fleet.robot_steps                             robot-scans of the ticks
   fleet.gated                                   robot-scans whose gate fired
+  fleet.map_writes                              shared-map ticks that wrote it
 """
 
 from __future__ import annotations
